@@ -1,67 +1,43 @@
-"""Benchmark: flagship MCPG frame on a map-scale scene, real TPU chip.
+"""Benchmark: flagship MCPG frame plus map-scale, production and live rows.
 
 Prints ONE JSON line:
-  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
+  {"metric": ..., "value": N, "unit": ..., "detail": {...}}
 
 Matches the BASELINE.md headline setup as closely as procedural content
 allows: 1920×1080, MCPG integrator, max path length 3, on a ~17k-
-triangle scene (ad_azad-class triangle count). Baseline target is
-1 Grays/s on a v5e-8; this runs on ONE chip, so vs_baseline measures
-against the 125 Mrays/s per-chip share (pixel-grid sharding is
-embarrassingly parallel, verified bit-identical in tests).
-
-Round-4 additions (VERDICT r3 #2/#5/#7):
-- cold AND steady-state frame times are reported separately (the
-  guiding-maturity transient moved the headline in r3; now quality
-  fixes and kernel speed are decoupled in the tracking),
-- a second tracked scene (~280k tris) exercises the HBM-streaming
-  traversal — the path real AD-class maps take,
-- vs_prev compares against the newest BENCH_r*.json and flags a >10%
-  headline regression.
+triangle scene (ad_azad-class triangle count). Cold and steady-state
+frame times are reported separately (the guiding-maturity transient
+moves the headline); a second scene (~280k tris), the reference's
+default-quality guiding config and the live 313k-triangle dungeon loop
+follow. Every time ends at ``jax.block_until_ready``.
 """
 from __future__ import annotations
 
-import glob
 import json
 import os
-import re
 import time
 
 import jax
 import jax.numpy as jnp
-
-# persistent compile cache: the bench kernels are stable between runs
-os.makedirs("/root/.cache/jax_comp", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-
-def _sync(outputs):
-    # real device->host transfer: block_until_ready does not reliably
-    # wait on the remote platform (docs/perf_notes_r1b.md)
-    return float(outputs["ldr"].ravel()[0])
 
 
 def _bench_phases(bundle, accel, config, mcfg, phases, timed=3):
     """Render one warm sequence, timing `timed` frames at each phase
     boundary. ``phases``: dict name -> start frame index. Returns
     {name: seconds/frame}. A single sequence measures cold and
-    steady-state behavior of the SAME state trajectory (VERDICT r3 #7)."""
+    steady-state behavior of the SAME state trajectory."""
     from merian_quake_tpu.renderer import init_state, render_frame
 
     state = init_state(config, mcfg)
     uniforms = bundle.uniforms
     out = {}
     frame = 0
-    last = max(phases.values())
-    # compile + settle: the remote platform runs a freshly compiled
-    # program ~3x slower for its first few calls (perf_notes_r1b.md)
-    for _ in range(2):
+    for _ in range(2):  # compile + settle
         uniforms = uniforms._replace(frame=jnp.uint32(1000 + frame))
         state, outputs = render_frame(
             accel, bundle.atlas, uniforms, config, state, mcfg
         )
-        _sync(outputs)
+        jax.block_until_ready(outputs)
     state = init_state(config, mcfg)  # reset: phase 0 is truly cold
     for name, start in sorted(phases.items(), key=lambda kv: kv[1]):
         while frame < start:
@@ -70,7 +46,7 @@ def _bench_phases(bundle, accel, config, mcfg, phases, timed=3):
                 accel, bundle.atlas, uniforms, config, state, mcfg
             )
             frame += 1
-        _sync(outputs if frame else {"ldr": jnp.zeros(1)})
+        jax.block_until_ready(state)
         t0 = time.perf_counter()
         for _ in range(timed):
             uniforms = uniforms._replace(frame=jnp.uint32(frame))
@@ -78,42 +54,9 @@ def _bench_phases(bundle, accel, config, mcfg, phases, timed=3):
                 accel, bundle.atlas, uniforms, config, state, mcfg
             )
             frame += 1
-        _sync(outputs)
+        jax.block_until_ready(outputs)
         out[name] = (time.perf_counter() - t0) / timed
     return out
-
-
-def _prev_live():
-    """Newest committed live_scale frame_ms (None before round 5)."""
-    best = None
-    for p in sorted(glob.glob("BENCH_r*.json")):
-        try:
-            data = json.load(open(p))
-        except Exception:
-            continue
-        parsed = data.get("parsed", data)
-        live = parsed.get("detail", {}).get("live_scale")
-        if isinstance(live, dict) and "frame_ms" in live:
-            best = float(live["frame_ms"])
-    return best
-
-
-def _prev_bench():
-    """Newest committed BENCH_r*.json headline value, for the
-    regression gate (VERDICT r3 weak #5)."""
-    best = None
-    for p in sorted(glob.glob("BENCH_r*.json")):
-        m = re.match(r"BENCH_r(\d+)\.json", os.path.basename(p))
-        if not m:
-            continue
-        try:
-            data = json.load(open(p))
-        except Exception:
-            continue
-        parsed = data.get("parsed", data)
-        if isinstance(parsed, dict) and "value" in parsed:
-            best = (int(m.group(1)), float(parsed["value"]))
-    return best
 
 
 def main():
@@ -122,6 +65,9 @@ def main():
     from merian_quake_tpu.models.types import RenderConfig
     from merian_quake_tpu.render.mcpg import MCPGConfig
     from merian_quake_tpu.render.mcpg.config import production_config
+    from merian_quake_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     width, height, spp, mpl = 1920, 1080, 2, 3
     smoke = bool(os.environ.get("MQ_BENCH_SMOKE"))
@@ -145,8 +91,8 @@ def main():
     # r1-r3-continuity point (frame 12), steady state (frame 28)
     mcfg = MCPGConfig()
     if os.environ.get("MQ_SURF_BUDGET"):
-        # live-lane compaction A/B knob (docs/perf_notes_r5.md): e.g.
-        # MQ_SURF_BUDGET=0.75,0.5 — compiles a larger program
+        # live-lane compaction A/B knob: e.g. MQ_SURF_BUDGET=0.75,0.5 —
+        # compiles a larger program
         mcfg = mcfg._replace(
             surf_live_budget=tuple(
                 float(x)
@@ -167,8 +113,8 @@ def main():
         bundle, accel, config, prod, {"warm6": 6}, timed=3
     )["warm6"]
 
-    # map-scale scene (~280k tris): forces the HBM-streaming sweep —
-    # the path AD-class maps take (BASELINE configs 4-5); light config
+    # map-scale scene (~280k tris): the triangle count AD-class maps
+    # have (BASELINE configs 4-5); light config
     mega = city(n_buildings=2500 if smoke else 28000, seed=11)
     accel_m = build_accel(mega.scene, mega.atlas)
     config_m = config._replace(
@@ -178,7 +124,7 @@ def main():
         mega, accel_m, config_m, mcfg, {"warm6": 6}, timed=3
     )["warm6"]
 
-    # LIVE map-scale row (round 5, VERDICT r4 #5): the FULL per-frame
+    # LIVE map-scale row: the FULL per-frame
     # loop — native game step (QuakeC monsters) + entity extraction +
     # incremental accel refresh (BLAS-refit equivalent) + render — on
     # the AD-scale dungeon (~290k tris, ~200 lights), the path real
@@ -215,7 +161,7 @@ def main():
             la.accel, live.gs.static_bundle.atlas, uniforms_live,
             cfg_live, state_live, mcfg,
         )
-        _sync(out_live)
+        jax.block_until_ready(out_live)
         if i >= 4:  # steady frames only
             dt_step += t1 - t0
             dt_refresh += t2 - t1
@@ -230,31 +176,20 @@ def main():
             la.accel, live.gs.static_bundle.atlas, uniforms_live,
             cfg_live, state_live, mcfg,
         )
-    _sync(out_live)
+    jax.block_until_ready(out_live)
     dt_live = (_time.perf_counter() - t0) / timed_live
 
     # ray segments per frame: 1 primary + spp × (mpl - 1) bounce rays
     rays = width * height * (1 + spp * (mpl - 1))
     rays_prod = rays + width * height * prod.volume.volume_spp
     mrays_per_s = rays / dt / 1e6
-    target_mrays = 1000.0 / 8.0  # per-chip share of 1 Grays/s on v5e-8
-    prev = _prev_bench()
-    vs_prev = None
-    regression = False
-    if prev is not None:
-        vs_prev = round(mrays_per_s / prev[1], 4)
-        regression = mrays_per_s < 0.9 * prev[1]
-    prev_live = _prev_live()
-    regression_live = (
-        prev_live is not None and dt_live * 1000 > 1.1 * prev_live
-    )
+    dev = jax.devices()[0]
     print(
         json.dumps(
             {
                 "metric": "mcpg_ray_throughput_1080p_17k_tris_single_chip",
                 "value": round(mrays_per_s, 2),
                 "unit": "Mrays/s",
-                "vs_baseline": round(mrays_per_s / target_mrays, 4),
                 "detail": {
                     "frame_ms": round(dt * 1000, 2),
                     "cold_frame_ms": round(ph["cold"] * 1000, 2),
@@ -262,20 +197,21 @@ def main():
                     "steady_mrays_per_s": round(
                         rays / ph["steady"] / 1e6, 2
                     ),
-                    "vs_prev_round": vs_prev,
-                    "regression": regression,
                     "resolution": f"{width}x{height}",
                     "spp": spp,
                     "max_path_length": mpl,
                     "integrator": "mcpg",
                     "scene": "procedural city (~17k tris, sky+sun+emissives)",
                     "triangles": int(accel.scene.num_tris),
-                    "device": str(jax.devices()[0]),
+                    "device": {
+                        "platform": dev.platform,
+                        "kind": dev.device_kind,
+                        "count": len(jax.devices()),
+                    },
                     "map_scale": {
                         "frame_ms": round(dt_mega * 1000, 2),
                         "mrays_per_s": round(rays / dt_mega / 1e6, 2),
                         "triangles": int(accel_m.scene.num_tris),
-                        "path": "partitioned resident sweep",
                     },
                     "live_scale": {
                         "frame_ms": round(dt_live * 1000, 2),
@@ -285,7 +221,6 @@ def main():
                         "accel_refresh_ms": round(
                             dt_refresh / 3 * 1000, 2
                         ),
-                        "regression": regression_live,
                         "path": (
                             "live dungeon: QuakeC step + extraction + "
                             "dynamic accel refresh + render"

@@ -1,15 +1,15 @@
-"""merian_quake_tpu — TPU-native real-time path tracing framework.
+"""merian_quake_tpu — real-time path tracing framework in JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 UnleqitDEV/merian-quake (a Vulkan real-time path tracer for Quake with
 Markov Chain Path Guiding, ReSTIR DI and Screen-Space Mixture Models).
 
 Layers (bottom → top), mirroring the reference's layer map
-(see SURVEY.md §1) but designed TPU-first:
+(see SURVEY.md §1), as dense array programs:
 
 - ``ops``      : math/sampling kernel library (pure JAX + Pallas)
 - ``models``   : scene sources — Quake asset loaders and procedural scenes
-- ``accel``    : TPU-native ray-scene intersection (cluster BVH, no HW RT)
+- ``accel``    : ray-scene intersection (cluster sweep kernel, no HW RT)
 - ``render``   : gbuffer + integrators (PT / MCPG / ReSTIR / SSMM)
 - ``post``     : accumulate, denoise, exposure, tonemap, fxaa
 - ``graph``    : declarative frame graph with delayed edges + JSON config

@@ -1,19 +1,19 @@
-"""TPU-native ray–scene intersection.
+"""Ray–scene intersection.
 
 The reference outsources traversal to the Vulkan driver's BVH
-(rayQueryEXT, raytrace.glsl:69-119). TPUs have no RT hardware and no
-efficient per-ray divergent control flow, so this layer is built around
-dense, branchless intersection sweeps:
+(rayQueryEXT, raytrace.glsl:69-119), which JAX cannot reach, so this
+layer computes it itself:
 
-- ``intersect``: Möller–Trumbore over all triangles, chunked with
-  ``lax.scan`` and a running min-reduction (the correctness oracle, and
-  already fast for procedural/Quake-scale scenes);
-- a cluster structure (Morton-ordered triangle clusters with AABBs) that
-  lets the Pallas kernel skip whole clusters per ray tile — hierarchy at
-  tile granularity instead of a divergent per-ray stack walk;
-- the alpha-test any-hit loop done as bounded re-trace passes, gated on
-  a per-triangle ``needs_alpha`` class computed at build time (most hits
-  commit without a texture fetch).
+- ``build``: acceptance classes as per-triangle mask bits, a median-split
+  cluster order with per-cluster AABBs, and the cluster-major SoA
+  triangle layout;
+- ``sweep``: the GPU kernel — one program per ray block loops over the
+  clusters, skips those no ray can reach, and runs Möller–Trumbore on the
+  rest (nearest-hit and any-hit modes);
+- ``intersect``: dispatch (sweep on the GPU, the dense ``intersect_oracle``
+  elsewhere and as the tests' reference), and the alpha-test any-hit loop
+  done as bounded re-trace passes, gated on the per-triangle
+  ``needs_alpha`` class (most hits commit without a texture fetch).
 """
 from .build import AccelScene, build_accel  # noqa: F401
 from .intersect import intersect, trace_nearest, HitRecord  # noqa: F401

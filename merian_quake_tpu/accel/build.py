@@ -1,4 +1,4 @@
-"""Host-side acceleration build: triangle classes + Morton clusters.
+"""Host-side acceleration build: triangle classes + clusters.
 
 Replaces the reference's BLAS/TLAS build (DeviceASBuilder,
 quake_node.cpp:985-1012). Instead of a pointer tree we produce:
@@ -6,73 +6,64 @@ quake_node.cpp:985-1012). Instead of a pointer tree we produce:
 - per-triangle acceptance class for the any-hit loop (see
   ``raytrace.glsl:95-119``): padding/never-accept triangles are removed
   from candidacy entirely; triangles whose texture has transparent
-  texels are flagged ``needs_alpha`` so only those trigger re-tracing;
-- a Morton-order permutation of triangles and per-cluster AABBs for
-  tile-granularity culling in the Pallas intersector.
+  texels are flagged ``needs_alpha`` so only those trigger re-tracing.
+  The classes are bits of one mask word per triangle (``MASK_*``), so
+  nearest-hit, shadow and alpha-only traces differ only in which bit
+  they test;
+- a median-split triangle order with per-cluster AABBs, and the
+  cluster-major SoA triangle layout the GPU sweep reads
+  (accel/sweep.py).
 
-Rebuild cost is O(T log T) numpy per worldspawn; per-frame dynamic
-geometry reuses the static order and only refits AABBs (device-side).
+Rebuild cost is O(T log T) numpy per worldspawn; the live path keeps
+the static order and rewrites only a dynamic cluster suffix per frame.
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..models import materials
 from ..models.types import CLUSTER_SIZE, Scene, TextureAtlas
 
-CLUSTER_FINE = 32  # fine-culling chunk for coherent ray packets
+# triangle mask bits (AccelScene.tri_mask / cluster_mask)
+MASK_CANDIDATE = 1  # nearest-hit candidate (raytrace.glsl:95-119 class)
+MASK_OCCLUDER = 2  # shadow-ray occluder: candidate, not sky, not alpha
+MASK_ALPHA = 4  # candidate whose texture alpha decides the hit
+
+_BIG = np.float32(1e30)  # empty-cluster AABB sentinel (lo = +BIG, hi = -BIG)
 
 
 class AccelScene(NamedTuple):
-    """Scene + intersection metadata (all leading-dim T, Morton order)."""
+    """Scene + intersection metadata (leading dim T or C = T / 64, in
+    cluster order)."""
 
     scene: Scene
-    candidate: jnp.ndarray  # bool[T] participates in intersection
-    needs_alpha: jnp.ndarray  # bool[T] committed hit requires texture alpha
-    cluster_lo: jnp.ndarray  # f32[C, 3] cluster AABB min
-    cluster_hi: jnp.ndarray  # f32[C, 3] cluster AABB max
-    woop_w: jnp.ndarray  # f32[3T, 8] unit-triangle affine maps (woop.py)
-    woop_cand: jnp.ndarray  # f32[1, T] candidacy for the Woop kernel
+    tri_mask: jnp.ndarray  # i32[T] MASK_* bits
+    cluster_mask: jnp.ndarray  # i32[C] OR of the cluster's tri_mask
+    cluster_lo: jnp.ndarray  # f32[C, 3] AABB min over candidates
+    cluster_hi: jnp.ndarray  # f32[C, 3] AABB max over candidates
+    tri_soa: jnp.ndarray  # f32[C, 9, CLUSTER_SIZE] rows v0, e1, e2 (xyz)
     tri_attr: jnp.ndarray  # f32[T, 40] packed shading attributes (one
     # gather per hit instead of ~12 — see trace.ATTR_* layout)
-    world_lo: jnp.ndarray  # f32[3] scene bounds (ray-sort quantization)
-    world_hi: jnp.ndarray
-    # FINE variant (chunk = CLUSTER_FINE = 32): tighter culling for
-    # coherent (primary/camera) ray packets — measured ~20% faster
-    # primaries; bounce packets stay on the coarse table (finer tiles
-    # lose there: visits multiply faster than pairs shrink)
-    woop_w_fine: jnp.ndarray | None = None  # f32[3T, 8] packed chunk=32
-    cluster_lo_fine: jnp.ndarray | None = None  # f32[C*4, 3]
-    cluster_hi_fine: jnp.ndarray | None = None
-    # SHADOW variant: sky + alpha-tested triangles zeroed (sky passes
-    # light, raytrace.glsl:122-145; alpha resolved on the alpha-only
-    # table below). Shares woop_w's buffer when the scene has neither.
-    woop_w_shadow: jnp.ndarray | None = None  # f32[3T, 8]
-    # ALPHA-ONLY variant: just the needs_alpha triangles, with their
-    # own cluster AABBs (empty clusters cull to +inf te). None when the
-    # scene has no alpha-tested triangles.
-    woop_w_alpha: jnp.ndarray | None = None  # f32[3T, 8]
-    cluster_lo_alpha: jnp.ndarray | None = None  # f32[C, 3]
-    cluster_hi_alpha: jnp.ndarray | None = None
-    # PROXY variant: the scene's largest opaque triangles, re-packed
-    # into a small table of their own. A cheap pre-sweep against it
-    # yields a valid per-ray upper bound on the nearest-hit t (the
-    # proxy is a strict subset of the candidate set), which warm-starts
-    # the full sweep with an almost-final horizon — the in-kernel
-    # per-ray reachability gate then skips nearly every tile. This is
-    # the TPU substitute for a BVH's early termination on incoherent
-    # bounce rays (packet frustum culling alone barely prunes those).
-    woop_w_proxy: jnp.ndarray | None = None  # f32[3P, 8]
-    cluster_lo_proxy: jnp.ndarray | None = None  # f32[Cp, 3]
-    cluster_hi_proxy: jnp.ndarray | None = None
 
     @property
     def num_clusters(self) -> int:
         return self.cluster_lo.shape[0]
+
+    @property
+    def candidate(self) -> jnp.ndarray:
+        """bool[T] participates in nearest-hit intersection."""
+        return (self.tri_mask & MASK_CANDIDATE) != 0
+
+    @property
+    def needs_alpha(self) -> jnp.ndarray:
+        """bool[T] a committed hit requires the texture alpha test."""
+        return (self.tri_mask & MASK_ALPHA) != 0
 
 
 def texture_alpha_flags(atlas: TextureAtlas) -> np.ndarray:
@@ -117,12 +108,12 @@ def _median_split_perm(
     """Cluster-aligned recursive median-split triangle order.
 
     Top-down BVH-leaf construction (longest-axis median split, snapped
-    to CLUSTER_SIZE multiples so leaves coincide with the kernel's
-    fixed 128-triangle clusters). Compared to Morton chunking this
-    yields clusters with no spatial straddle between space-filling-
-    curve jumps — tighter AABBs, fewer packet visits per ray. Same
-    ranking contract as the Morton path: candidates first, then
-    alpha-only valid triangles, then padding.
+    to CLUSTER_SIZE multiples so leaves coincide with the sweep's
+    clusters). Compared to Morton chunking this yields clusters with no
+    spatial straddle between space-filling-curve jumps — tighter AABBs,
+    fewer cluster visits per ray block. Same ranking contract as the
+    Morton path: candidates first, then alpha-only valid triangles, then
+    padding.
     """
     cent = ((v0 + v1 + v2) / 3.0).astype(np.float32)
     rank = np.where(candidate, 0, np.where(valid, 1, 2))
@@ -148,6 +139,77 @@ def _median_split_perm(
     return np.concatenate(
         out + [np.nonzero(rank == 1)[0], np.nonzero(rank == 2)[0]]
     )
+
+
+def _cluster_aabbs(v0, v1, v2, mask) -> tuple[np.ndarray, np.ndarray]:
+    """Per-cluster AABB over the masked triangles (empty → +BIG/-BIG)."""
+    from ..utils import native
+
+    aabbs = native.cluster_aabbs(v0, v1, v2, mask, CLUSTER_SIZE)
+    if aabbs is not None:
+        return aabbs
+    c = v0.shape[0] // CLUSTER_SIZE
+    pts = np.stack([v0, v1, v2], axis=1).reshape(c, CLUSTER_SIZE * 3, 3)
+    cm = np.repeat(mask.reshape(c, CLUSTER_SIZE), 3, axis=1)
+    lo = np.where(cm[..., None], pts, _BIG).min(axis=1)
+    hi = np.where(cm[..., None], pts, -_BIG).max(axis=1)
+    return lo.astype(np.float32), hi.astype(np.float32)
+
+
+def _sweep_tables(v0, v1, v2, candidate, needs_alpha, flags):
+    """(tri_mask i32[T], cluster_mask i32[C], tri_soa f32[C, 9, 64])."""
+    sky = flags == materials.MAT_FLAGS_SKY
+    mask = (
+        np.where(candidate, MASK_CANDIDATE, 0)
+        | np.where(candidate & ~sky & ~needs_alpha, MASK_OCCLUDER, 0)
+        | np.where(candidate & needs_alpha, MASK_ALPHA, 0)
+    ).astype(np.int32)
+    c = v0.shape[0] // CLUSTER_SIZE
+    cmask = np.bitwise_or.reduce(mask.reshape(c, CLUSTER_SIZE), axis=1)
+    # e1/e2 in f32 exactly as the oracle forms them (v1 - v0, v2 - v0)
+    rows = np.concatenate([v0, v1 - v0, v2 - v0], axis=1)  # (T, 9)
+    soa = rows.reshape(c, CLUSTER_SIZE, 9).transpose(0, 2, 1)
+    return mask, cmask.astype(np.int32), np.ascontiguousarray(soa, np.float32)
+
+
+def _tri_attr(sc, tex_px: np.ndarray) -> np.ndarray:
+    """f32[T, 40] shading attributes (trace._A_* column layout)."""
+    t = np.asarray(sc.v0).shape[0]
+    attr = np.zeros((t, 40), np.float32)
+    attr[:, 0:3] = np.asarray(sc.v0)
+    attr[:, 3:6] = np.asarray(sc.v1)
+    attr[:, 6:9] = np.asarray(sc.v2)
+    attr[:, 9:12] = np.asarray(sc.pv0)
+    attr[:, 12:15] = np.asarray(sc.pv1)
+    attr[:, 15:18] = np.asarray(sc.pv2)
+    attr[:, 18:24] = np.asarray(sc.st).reshape(t, 6)
+    attr[:, 24] = np.asarray(sc.texnum)
+    attr[:, 25] = np.asarray(sc.fb_texnum)
+    attr[:, 26] = np.asarray(sc.gloss_texnum)
+    attr[:, 27] = np.asarray(sc.flags)
+    attr[:, 28:31] = np.asarray(sc.solid_albedo)
+    attr[:, 31:34] = np.asarray(sc.solid_emission)
+    attr[:, 34] = np.asarray(sc.normal_texnum)
+    # texel density (texels per world unit) for ray-cone mip selection
+    st = np.asarray(sc.st)
+    sd0 = st[:, 1] - st[:, 0]
+    sd1 = st[:, 2] - st[:, 0]
+    uv_area = 0.5 * np.abs(sd0[:, 0] * sd1[:, 1] - sd0[:, 1] * sd1[:, 0])
+    e1 = np.asarray(sc.v1) - np.asarray(sc.v0)
+    e2 = np.asarray(sc.v2) - np.asarray(sc.v0)
+    w_area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+    attr[:, 35] = np.sqrt(
+        uv_area * tex_px / np.maximum(w_area, 1e-9)
+    ).astype(np.float32)
+    return attr
+
+
+def _tex_px(atlas: TextureAtlas | None, texnum: np.ndarray) -> np.ndarray:
+    if atlas is None:
+        return np.full(texnum.shape, 64.0 * 64.0)
+    table = np.asarray(atlas.table)
+    px = np.maximum(table[:, 2] * table[:, 3], 1).astype(np.float64)
+    return px[np.clip(texnum, 0, len(px) - 1)]
 
 
 def build_accel(scene: Scene, atlas: TextureAtlas | None = None) -> AccelScene:
@@ -196,191 +258,22 @@ def build_accel(scene: Scene, atlas: TextureAtlas | None = None) -> AccelScene:
     candidate = candidate[perm]
     needs_alpha = needs_alpha[perm]
 
-    # --- cluster AABBs over the Morton-ordered soup ---
     v0 = np.asarray(scene.v0)
     v1 = np.asarray(scene.v1)
     v2 = np.asarray(scene.v2)
-    T = v0.shape[0]
-    aabbs = native.cluster_aabbs(v0, v1, v2, candidate, CLUSTER_SIZE)
-    if aabbs is not None:
-        lo_c, hi_c = aabbs
-    else:
-        C = T // CLUSTER_SIZE
-        pts = np.stack([v0, v1, v2], axis=1).reshape(C, CLUSTER_SIZE * 3, 3)
-        cmask = candidate.reshape(C, CLUSTER_SIZE).repeat(3, axis=1).reshape(
-            C, CLUSTER_SIZE * 3
-        )
-        big = np.float32(1e30)
-        lo_c = np.where(cmask[..., None], pts, big).min(axis=1)
-        hi_c = np.where(cmask[..., None], pts, -big).max(axis=1)
-        empty = ~cmask.any(axis=1)
-        lo_c[empty] = big
-        hi_c[empty] = -big
-
-    wres = native.build_woop(v0, v1, v2, candidate, CLUSTER_SIZE)
-    if wres is not None:
-        from .woop import bake_candidacy
-
-        woop_w, woop_cand = wres
-        woop_w = bake_candidacy(woop_w, woop_cand)
-    else:
-        from .woop import build_woop
-
-        woop_w, woop_cand = build_woop(v0, v1, v2, candidate)
-
-    # shadow table (any-hit visibility): sky + alpha-tested tris zeroed
-    from .woop import bake_candidacy as _bake
-
-    flags_m = np.asarray(scene.flags)
-    sky_m = flags_m == materials.MAT_FLAGS_SKY
-    shadow_cand = candidate & ~sky_m & ~needs_alpha
-    if shadow_cand.sum() == candidate.sum():
-        woop_w_shadow = woop_w  # same buffer — no sky/alpha tris
-    else:
-        woop_w_shadow = _bake(woop_w, shadow_cand)
-
-    # alpha-only table + its own cluster AABBs for exact alpha
-    # occlusion in trace_visibility (tiny: only fence-like geometry)
-    alpha_cand = candidate & needs_alpha
-    woop_w_alpha = lo_a = hi_a = None
-    if alpha_cand.any():
-        woop_w_alpha = _bake(woop_w, alpha_cand)
-        aabbs_a = native.cluster_aabbs(v0, v1, v2, alpha_cand, CLUSTER_SIZE)
-        if aabbs_a is not None:
-            lo_a, hi_a = aabbs_a
-        else:
-            C = T // CLUSTER_SIZE
-            pts = np.stack([v0, v1, v2], axis=1).reshape(
-                C, CLUSTER_SIZE * 3, 3
-            )
-            am = alpha_cand.reshape(C, CLUSTER_SIZE).repeat(3, axis=1)
-            am = am.reshape(C, CLUSTER_SIZE * 3)
-            big = np.float32(1e30)
-            lo_a = np.where(am[..., None], pts, big).min(axis=1)
-            hi_a = np.where(am[..., None], pts, -big).max(axis=1)
-
-    # proxy table: the largest opaque (non-sky, non-alpha) triangles,
-    # re-packed compactly in their global Morton order. Swept first, a
-    # hit gives a valid nearest-t upper bound (subset ⊆ candidates)
-    # that warm-starts the full sweep (see AccelScene field comment).
-    woop_w_proxy = lo_p = hi_p = None
-    if T >= 4096 and int(shadow_cand.sum()) >= CLUSTER_SIZE:
-        e1p = v1 - v0
-        e2p = v2 - v0
-        area2 = np.linalg.norm(np.cross(e1p, e2p), axis=-1)
-        area2 = np.where(shadow_cand, area2, -1.0)
-        nc_proxy = int(np.clip((T // CLUSTER_SIZE) // 16, 2, 64))
-        n_proxy = min(nc_proxy * CLUSTER_SIZE, int(shadow_cand.sum()))
-        n_proxy -= n_proxy % CLUSTER_SIZE
-        if n_proxy >= CLUSTER_SIZE:
-            sel = np.sort(np.argpartition(-area2, n_proxy - 1)[:n_proxy])
-            pv0, pv1, pv2 = v0[sel], v1[sel], v2[sel]
-            pcand = shadow_cand[sel]
-            from .woop import build_woop as _bw
-
-            woop_w_proxy, pcand_ok = _bw(pv0, pv1, pv2, pcand)
-            aabbs_p = native.cluster_aabbs(
-                pv0, pv1, pv2, pcand_ok, CLUSTER_SIZE
-            )
-            if aabbs_p is not None:
-                lo_p, hi_p = aabbs_p
-            else:
-                Cp = n_proxy // CLUSTER_SIZE
-                pts = np.stack([pv0, pv1, pv2], axis=1).reshape(
-                    Cp, CLUSTER_SIZE * 3, 3
-                )
-                pm = pcand_ok.reshape(Cp, CLUSTER_SIZE).repeat(3, axis=1)
-                pm = pm.reshape(Cp, CLUSTER_SIZE * 3)
-                big = np.float32(1e30)
-                lo_p = np.where(pm[..., None], pts, big).min(axis=1)
-                hi_p = np.where(pm[..., None], pts, -big).max(axis=1)
-
-    # fine (chunk=32) packing + AABBs for coherent-packet culling
-    from .woop import build_woop as _build_woop_py
-
-    woop_w_fine, _ = _build_woop_py(v0, v1, v2, candidate, chunk=CLUSTER_FINE)
-    aabbs_f = native.cluster_aabbs(v0, v1, v2, candidate, CLUSTER_FINE)
-    if aabbs_f is not None:
-        lo_f, hi_f = aabbs_f
-    else:
-        Cf = T // CLUSTER_FINE
-        pts = np.stack([v0, v1, v2], axis=1).reshape(Cf, CLUSTER_FINE * 3, 3)
-        cmask = candidate.reshape(Cf, CLUSTER_FINE).repeat(3, axis=1).reshape(
-            Cf, CLUSTER_FINE * 3
-        )
-        big = np.float32(1e30)
-        lo_f = np.where(cmask[..., None], pts, big).min(axis=1)
-        hi_f = np.where(cmask[..., None], pts, -big).max(axis=1)
-
-    sc = scene
-    attr = np.zeros((T, 40), np.float32)
-    attr[:, 0:3] = np.asarray(sc.v0)
-    attr[:, 3:6] = np.asarray(sc.v1)
-    attr[:, 6:9] = np.asarray(sc.v2)
-    attr[:, 9:12] = np.asarray(sc.pv0)
-    attr[:, 12:15] = np.asarray(sc.pv1)
-    attr[:, 15:18] = np.asarray(sc.pv2)
-    attr[:, 18:24] = np.asarray(sc.st).reshape(T, 6)
-    attr[:, 24] = np.asarray(sc.texnum)
-    attr[:, 25] = np.asarray(sc.fb_texnum)
-    attr[:, 26] = np.asarray(sc.gloss_texnum)
-    attr[:, 27] = np.asarray(sc.flags)
-    attr[:, 28:31] = np.asarray(sc.solid_albedo)
-    attr[:, 31:34] = np.asarray(sc.solid_emission)
-    attr[:, 34] = np.asarray(sc.normal_texnum)
-    # texel density (texels per world unit) for ray-cone mip selection
-    st = np.asarray(sc.st)
-    sd0 = st[:, 1] - st[:, 0]
-    sd1 = st[:, 2] - st[:, 0]
-    uv_area = 0.5 * np.abs(sd0[:, 0] * sd1[:, 1] - sd0[:, 1] * sd1[:, 0])
-    e1 = np.asarray(sc.v1) - np.asarray(sc.v0)
-    e2 = np.asarray(sc.v2) - np.asarray(sc.v0)
-    w_area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
-    if atlas is not None:
-        tdim = np.asarray(atlas.table)[np.clip(np.asarray(sc.texnum), 0, None)]
-        tex_px = np.maximum(tdim[:, 2] * tdim[:, 3], 1).astype(np.float64)
-    else:
-        tex_px = np.full((T,), 64.0 * 64.0)
-    attr[:, 35] = np.sqrt(
-        uv_area * tex_px / np.maximum(w_area, 1e-9)
-    ).astype(np.float32)
-
+    lo_c, hi_c = _cluster_aabbs(v0, v1, v2, candidate)
+    mask, cmask, soa = _sweep_tables(
+        v0, v1, v2, candidate, needs_alpha, np.asarray(scene.flags)
+    )
+    attr = _tri_attr(scene, _tex_px(atlas, np.asarray(scene.texnum)))
     return AccelScene(
         scene=scene,
-        candidate=jnp.asarray(candidate),
-        needs_alpha=jnp.asarray(needs_alpha),
+        tri_mask=jnp.asarray(mask),
+        cluster_mask=jnp.asarray(cmask),
         cluster_lo=jnp.asarray(lo_c.astype(np.float32)),
         cluster_hi=jnp.asarray(hi_c.astype(np.float32)),
-        woop_w=(woop_w_dev := jnp.asarray(woop_w)),
-        woop_cand=jnp.asarray(woop_cand[None].astype(np.float32)),
+        tri_soa=jnp.asarray(soa),
         tri_attr=jnp.asarray(attr),
-        world_lo=jnp.asarray(np.nanmin(np.where(valid[:, None], v0, np.nan), axis=0).astype(np.float32)),
-        world_hi=jnp.asarray(np.nanmax(np.where(valid[:, None], v0, np.nan), axis=0).astype(np.float32)),
-        woop_w_fine=jnp.asarray(woop_w_fine),
-        cluster_lo_fine=jnp.asarray(lo_f.astype(np.float32)),
-        cluster_hi_fine=jnp.asarray(hi_f.astype(np.float32)),
-        woop_w_shadow=(
-            woop_w_dev if woop_w_shadow is woop_w
-            else jnp.asarray(woop_w_shadow)
-        ),
-        woop_w_alpha=(
-            None if woop_w_alpha is None else jnp.asarray(woop_w_alpha)
-        ),
-        cluster_lo_alpha=(
-            None if lo_a is None else jnp.asarray(lo_a.astype(np.float32))
-        ),
-        cluster_hi_alpha=(
-            None if hi_a is None else jnp.asarray(hi_a.astype(np.float32))
-        ),
-        woop_w_proxy=(
-            None if woop_w_proxy is None else jnp.asarray(woop_w_proxy)
-        ),
-        cluster_lo_proxy=(
-            None if lo_p is None else jnp.asarray(lo_p.astype(np.float32))
-        ),
-        cluster_hi_proxy=(
-            None if hi_p is None else jnp.asarray(hi_p.astype(np.float32))
-        ),
     )
 
 
@@ -389,34 +282,19 @@ class LiveAccel(NamedTuple):
 
     The reference rebuilds dynamic entity geometry every frame and
     REFITS its BLAS/TLAS (quake_node.cpp:896-1012, DeviceASBuilder
-    update_geometry_f32_u32); the old live path here instead re-ran the
-    full host build (median split + Woop tables over the WHOLE soup)
-    per frame — seconds at AD scale. This struct freezes the static
-    accel once and appends a fixed-capacity DYNAMIC cluster suffix:
-    per frame only the suffix's Woop rows / cluster AABBs / shading
-    attrs are recomputed (numpy over ≤ a few thousand triangles) and
-    written into the device tables by one donated jit
-    (refresh_dynamic) — per-frame cost is O(dynamic), not O(map).
+    update_geometry_f32_u32). This struct freezes the static accel once
+    and appends a fixed-capacity DYNAMIC cluster suffix: per frame only
+    the suffix's SoA rows, masks, cluster AABBs and shading attrs are
+    recomputed (numpy over ≤ a few thousand triangles) and written into
+    the device tables by one donated jit (refresh_dynamic) — per-frame
+    cost is O(dynamic), not O(map).
     """
 
     accel: AccelScene  # full tables: static prefix + dynamic suffix
     n_static: int  # static triangle rows (cluster-aligned)
     dyn_cap: int  # dynamic capacity (cluster-aligned)
     tex_alpha: np.ndarray  # bool[MAX_TEX] texture-has-alpha
-    tex_px: np.ndarray  # f32[MAX_TEX] texel count (mip density)
-
-
-def _aabbs_np(v0, v1, v2, mask, chunk):
-    t = v0.shape[0]
-    c = t // chunk
-    pts = np.stack([v0, v1, v2], axis=1).reshape(c, chunk * 3, 3)
-    cm = mask.reshape(c, chunk).repeat(3, axis=1).reshape(c, chunk * 3)
-    big = np.float32(1e30)
-    lo = np.where(cm[..., None], pts, big).min(axis=1)
-    hi = np.where(cm[..., None], pts, -big).max(axis=1)
-    lo[~cm.any(axis=1)] = big
-    hi[~cm.any(axis=1)] = -big
-    return lo.astype(np.float32), hi.astype(np.float32)
+    atlas: TextureAtlas  # texel counts for the mip density column
 
 
 def build_accel_live(
@@ -427,148 +305,70 @@ def build_accel_live(
     ``bundle``: SceneBundle of the STATIC map. ``dyn_cap`` must be the
     GameState dynamic_capacity, rounded here to a cluster multiple.
     """
-    import jax.numpy as jnp
-
     scene, atlas = bundle.scene, bundle.atlas
     dyn_cap = -(-dyn_cap // CLUSTER_SIZE) * CLUSTER_SIZE
     acc = build_accel(scene, atlas)
     t0 = acc.scene.num_tris
-    z3 = np.zeros((3 * dyn_cap, 8), np.float32)
     ncd = dyn_cap // CLUSTER_SIZE
-    ncdf = dyn_cap // CLUSTER_FINE
-    big = np.float32(1e30)
-    empty = lambda n: (
-        np.full((n, 3), big, np.float32), np.full((n, 3), -big, np.float32)
-    )
-    elo, ehi = empty(ncd)
-    elof, ehif = empty(ncdf)
-    cat = lambda a, b: jnp.concatenate([jnp.asarray(a), jnp.asarray(b)])
 
-    # full-size alpha table in live mode (sprites/fences are dynamic)
-    w_alpha = (
-        acc.woop_w_alpha
-        if acc.woop_w_alpha is not None
-        else jnp.zeros_like(acc.woop_w)
-    )
-    lo_a = (
-        acc.cluster_lo_alpha
-        if acc.cluster_lo_alpha is not None
-        else jnp.full((acc.num_clusters, 3), big)
-    )
-    hi_a = (
-        acc.cluster_hi_alpha
-        if acc.cluster_hi_alpha is not None
-        else jnp.full((acc.num_clusters, 3), -big)
-    )
+    def pad(a, n, fill=0):
+        a = jnp.asarray(a)
+        return jnp.concatenate(
+            [a, jnp.full((n,) + a.shape[1:], fill, a.dtype)]
+        )
 
     sc = acc.scene
-    dz = lambda field, fill=0: jnp.concatenate(
-        [
-            getattr(sc, field),
-            jnp.full(
-                (dyn_cap,) + getattr(sc, field).shape[1:], fill,
-                getattr(sc, field).dtype,
-            ),
-        ]
-    )
     new_scene = sc._replace(
-        v0=dz("v0"), v1=dz("v1"), v2=dz("v2"),
-        pv0=dz("pv0"), pv1=dz("pv1"), pv2=dz("pv2"),
-        st=dz("st"), texnum=dz("texnum"), fb_texnum=dz("fb_texnum"),
-        gloss_texnum=dz("gloss_texnum"), normal_texnum=dz("normal_texnum"),
-        flags=dz("flags"), alpha=dz("alpha", -1.0),
-        solid_albedo=dz("solid_albedo"), solid_emission=dz("solid_emission"),
-        valid=dz("valid", False),
+        **{f: pad(getattr(sc, f), dyn_cap) for f in sc._fields if f != "alpha"},
+        alpha=pad(sc.alpha, dyn_cap, -1.0),
     )
-
-    table = np.asarray(atlas.table)
-    tex_px = np.maximum(table[:, 2] * table[:, 3], 1).astype(np.float64)
-    acc2 = acc._replace(
+    acc2 = AccelScene(
         scene=new_scene,
-        candidate=cat(acc.candidate, np.zeros(dyn_cap, bool)),
-        needs_alpha=cat(acc.needs_alpha, np.zeros(dyn_cap, bool)),
-        cluster_lo=cat(acc.cluster_lo, elo),
-        cluster_hi=cat(acc.cluster_hi, ehi),
-        woop_w=cat(acc.woop_w, z3),
-        woop_cand=jnp.concatenate(
-            [acc.woop_cand, jnp.zeros((1, dyn_cap))], axis=1
-        ),
-        tri_attr=cat(acc.tri_attr, np.zeros((dyn_cap, 40), np.float32)),
-        woop_w_fine=cat(acc.woop_w_fine, z3),
-        cluster_lo_fine=cat(acc.cluster_lo_fine, elof),
-        cluster_hi_fine=cat(acc.cluster_hi_fine, ehif),
-        woop_w_shadow=cat(acc.woop_w_shadow, z3),
-        woop_w_alpha=cat(w_alpha, z3),
-        cluster_lo_alpha=cat(lo_a, elo),
-        cluster_hi_alpha=cat(hi_a, ehi),
+        tri_mask=pad(acc.tri_mask, dyn_cap),
+        cluster_mask=pad(acc.cluster_mask, ncd),
+        cluster_lo=pad(acc.cluster_lo, ncd, _BIG),
+        cluster_hi=pad(acc.cluster_hi, ncd, -_BIG),
+        tri_soa=pad(acc.tri_soa, ncd),
+        tri_attr=pad(acc.tri_attr, dyn_cap),
     )
     return LiveAccel(
         accel=acc2,
         n_static=t0,
         dyn_cap=dyn_cap,
         tex_alpha=texture_alpha_flags(atlas),
-        tex_px=tex_px,
+        atlas=atlas,
     )
 
 
-def _apply_dyn_jit(t0: int, cap: int):
-    import functools
+@functools.partial(jax.jit, static_argnums=(0,), donate_argnums=(1,))
+def _apply_dyn(t0: int, acc: AccelScene, u: dict) -> AccelScene:
+    """Row-write the dynamic suffix (triangles from t0) of every table."""
+    c0 = t0 // CLUSTER_SIZE
 
-    import jax
-
-    @functools.partial(jax.jit, donate_argnums=(0,))
-    def apply(acc: AccelScene, u: dict) -> AccelScene:
-        import jax.numpy as jnp
-
-        r = lambda tab, rows, at: tab.at[at : at + rows.shape[0]].set(rows)
-        sc = acc.scene
-        sset = lambda field, rows: getattr(sc, field).at[
-            t0 : t0 + cap
-        ].set(rows)
-        new_scene = sc._replace(
-            v0=sset("v0", u["v0"]), v1=sset("v1", u["v1"]),
-            v2=sset("v2", u["v2"]),
-            pv0=sset("pv0", u["pv0"]), pv1=sset("pv1", u["pv1"]),
-            pv2=sset("pv2", u["pv2"]),
-            st=sset("st", u["st"]), texnum=sset("texnum", u["texnum"]),
-            fb_texnum=sset("fb_texnum", u["fb"]),
-            flags=sset("flags", u["flags"]),
-            solid_albedo=sset("solid_albedo", u["salb"]),
-            solid_emission=sset("solid_emission", u["semm"]),
-            valid=sset("valid", u["valid"]),
-        )
-        return acc._replace(
-            scene=new_scene,
-            candidate=r(acc.candidate, u["cand"], t0),
-            needs_alpha=r(acc.needs_alpha, u["needs_alpha"], t0),
-            cluster_lo=r(acc.cluster_lo, u["lo"], t0 // CLUSTER_SIZE),
-            cluster_hi=r(acc.cluster_hi, u["hi"], t0 // CLUSTER_SIZE),
-            woop_w=r(acc.woop_w, u["w"], 3 * t0),
-            woop_cand=acc.woop_cand.at[0, t0 : t0 + cap].set(
-                u["cand"].astype(jnp.float32)
-            ),
-            tri_attr=r(acc.tri_attr, u["attr"], t0),
-            woop_w_fine=r(acc.woop_w_fine, u["w_fine"], 3 * t0),
-            cluster_lo_fine=r(
-                acc.cluster_lo_fine, u["lo_f"], t0 // CLUSTER_FINE
-            ),
-            cluster_hi_fine=r(
-                acc.cluster_hi_fine, u["hi_f"], t0 // CLUSTER_FINE
-            ),
-            woop_w_shadow=r(acc.woop_w_shadow, u["w_shadow"], 3 * t0),
-            woop_w_alpha=r(acc.woop_w_alpha, u["w_alpha"], 3 * t0),
-            cluster_lo_alpha=r(
-                acc.cluster_lo_alpha, u["lo_a"], t0 // CLUSTER_SIZE
-            ),
-            cluster_hi_alpha=r(
-                acc.cluster_hi_alpha, u["hi_a"], t0 // CLUSTER_SIZE
-            ),
+    def put(tab, rows, at):
+        return jax.lax.dynamic_update_slice_in_dim(
+            tab, rows.astype(tab.dtype), at, axis=0
         )
 
-    return apply
-
-
-_APPLY_DYN_CACHE: dict = {}
+    sc = acc.scene
+    scene_rows = dict(
+        v0=u["v0"], v1=u["v1"], v2=u["v2"], pv0=u["pv0"], pv1=u["pv1"],
+        pv2=u["pv2"], st=u["st"], texnum=u["texnum"], fb_texnum=u["fb"],
+        flags=u["flags"], solid_albedo=u["salb"], solid_emission=u["semm"],
+        valid=u["valid"],
+    )
+    new_scene = sc._replace(
+        **{f: put(getattr(sc, f), r, t0) for f, r in scene_rows.items()}
+    )
+    return AccelScene(
+        scene=new_scene,
+        tri_mask=put(acc.tri_mask, u["mask"], t0),
+        cluster_mask=put(acc.cluster_mask, u["cmask"], c0),
+        cluster_lo=put(acc.cluster_lo, u["lo"], c0),
+        cluster_hi=put(acc.cluster_hi, u["hi"], c0),
+        tri_soa=put(acc.tri_soa, u["soa"], c0),
+        tri_attr=put(acc.tri_attr, u["attr"], t0),
+    )
 
 
 def refresh_dynamic(la: LiveAccel, dyn: dict) -> LiveAccel:
@@ -578,8 +378,6 @@ def refresh_dynamic(la: LiveAccel, dyn: dict) -> LiveAccel:
     over ``dyn_cap`` triangles; device cost is one donated jit that
     row-writes the suffix of every table in place.
     """
-    from .woop import bake_candidacy, build_woop
-
     cap = la.dyn_cap
     pad = cap - dyn["v"].shape[0]
     pd = (
@@ -596,60 +394,30 @@ def refresh_dynamic(la: LiveAccel, dyn: dict) -> LiveAccel:
     valid = pd(dyn["valid"])
     flags = pd(dyn["flags"])
     tex = pd(dyn["tex"])
-    fb = pd(dyn["fb"])
     uv = pd(dyn["uv"])
-    salb = pd(dyn["salb"])
-    semm = pd(dyn["semm"])
 
     flag_opaque = (flags > 0) & (flags < 7)
     needs_alpha = (
         valid & ~flag_opaque & la.tex_alpha[np.clip(tex, 0, None)]
     )
-    w, cand = build_woop(v0, v1, v2, valid, chunk=CLUSTER_SIZE)
-    w = bake_candidacy(w, cand)
-    w_fine, _ = build_woop(v0, v1, v2, valid, chunk=CLUSTER_FINE)
-    lo, hi = _aabbs_np(v0, v1, v2, cand, CLUSTER_SIZE)
-    lo_f, hi_f = _aabbs_np(v0, v1, v2, cand, CLUSTER_FINE)
-    sky = flags == materials.MAT_FLAGS_SKY
-    shadow_cand = cand & ~sky & ~needs_alpha
-    w_shadow = bake_candidacy(w, shadow_cand)
-    alpha_cand = cand & needs_alpha
-    w_alpha = bake_candidacy(w, alpha_cand)
-    lo_a, hi_a = _aabbs_np(v0, v1, v2, alpha_cand, CLUSTER_SIZE)
-
-    attr = np.zeros((cap, 40), np.float32)
-    attr[:, 0:3], attr[:, 3:6], attr[:, 6:9] = v0, v1, v2
-    attr[:, 9:12], attr[:, 12:15], attr[:, 15:18] = pv0, pv1, pv2
-    attr[:, 18:24] = uv.reshape(cap, 6)
-    attr[:, 24] = tex
-    attr[:, 25] = fb
-    attr[:, 27] = flags
-    attr[:, 28:31] = salb
-    attr[:, 31:34] = semm
-    sd0 = uv[:, 1] - uv[:, 0]
-    sd1 = uv[:, 2] - uv[:, 0]
-    uv_area = 0.5 * np.abs(sd0[:, 0] * sd1[:, 1] - sd0[:, 1] * sd1[:, 0])
-    e1 = v1 - v0
-    e2 = v2 - v0
-    w_area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
-    tpx = la.tex_px[np.clip(tex, 0, len(la.tex_px) - 1)]
-    attr[:, 35] = np.sqrt(
-        uv_area * tpx / np.maximum(w_area, 1e-9)
-    ).astype(np.float32)
-
+    mask, cmask, soa = _sweep_tables(v0, v1, v2, valid, needs_alpha, flags)
+    lo, hi = _cluster_aabbs(v0, v1, v2, valid)
+    dsc = Scene(
+        v0=v0, v1=v1, v2=v2, pv0=pv0, pv1=pv1, pv2=pv2, st=uv, texnum=tex,
+        fb_texnum=pd(dyn["fb"]), normal_texnum=np.zeros_like(tex),
+        gloss_texnum=np.zeros_like(tex), flags=flags,
+        alpha=np.full(tex.shape, -1.0, np.float32),
+        solid_albedo=pd(dyn["salb"]), solid_emission=pd(dyn["semm"]),
+        valid=valid,
+    )
+    attr = _tri_attr(dsc, _tex_px(la.atlas, tex))
     upd = dict(
         v0=v0, v1=v1, v2=v2, pv0=pv0, pv1=pv1, pv2=pv2,
-        st=uv, texnum=tex, fb=fb, flags=flags, salb=salb, semm=semm,
-        valid=valid, cand=cand, needs_alpha=needs_alpha,
-        lo=lo, hi=hi, lo_f=lo_f, hi_f=hi_f, lo_a=lo_a, hi_a=hi_a,
-        w=w, w_fine=w_fine, w_shadow=w_shadow, w_alpha=w_alpha,
-        attr=attr,
+        st=uv, texnum=tex, fb=dsc.fb_texnum, flags=flags,
+        salb=dsc.solid_albedo, semm=dsc.solid_emission, valid=valid,
+        mask=mask, cmask=cmask, lo=lo, hi=hi, soa=soa, attr=attr,
     )
-    key = (la.n_static, cap)
-    fn = _APPLY_DYN_CACHE.get(key)
-    if fn is None:
-        fn = _APPLY_DYN_CACHE[key] = _apply_dyn_jit(*key)
-    return la._replace(accel=fn(la.accel, upd))
+    return la._replace(accel=_apply_dyn(la.n_static, la.accel, upd))
 
 
 def scene_features(scene: Scene, uniforms=None, atlas=None):

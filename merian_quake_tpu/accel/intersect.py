@@ -1,17 +1,19 @@
-"""Dense Möller–Trumbore intersection with the alpha-test any-hit loop.
+"""Ray–scene intersection with the alpha-test any-hit loop.
 
 Semantics mirror the reference trace core (raytrace.glsl:82-119):
 
 - backface culling with the reference's normal convention
   n = cross(v2-v0, v1-v0) → front-facing iff det < 0,
-- nearest candidate hit via chunked running min-reduction,
+- nearest candidate hit,
 - committed hits on ``needs_alpha`` triangles sample the albedo
   texture's alpha channel; texel alpha < ALPHA_THRESHOLD rejects the
   hit and re-traces from just past it, at most MAX_INTERSECTIONS times.
 
-This is the *oracle* path (pure JAX, fully vectorized, O(N_rays × T));
-the Pallas cluster-culled kernel (pallas_intersect) must match it
-bit-for-nearly (same arithmetic, different scheduling).
+Two traversals compute it. On the GPU, the cluster sweep
+(``accel/sweep.py``, a Pallas kernel on the Triton route) skips every
+cluster no ray of a block can reach. Everywhere else, and as the
+reference the sweep is tested against, ``intersect_oracle`` tests every
+ray against every triangle (pure JAX, O(N_rays × T)).
 """
 from __future__ import annotations
 
@@ -23,10 +25,11 @@ import jax.numpy as jnp
 
 from ..models import atlas as atlas_mod
 from ..models import materials
-from .build import AccelScene
+from . import sweep
+from .build import MASK_ALPHA, MASK_CANDIDATE, MASK_OCCLUDER, AccelScene
 
-_BIG = jnp.float32(3e38)
-_DET_EPS = 1e-9
+_BIG = jnp.float32(sweep.BIG)
+_DET_EPS = sweep.DET_EPS
 _ADVANCE = 1e-3  # re-trace offset past a rejected surface (quake units)
 
 
@@ -41,18 +44,36 @@ class HitRecord(NamedTuple):
         return self.tri >= 0
 
 
-import os
+def use_sweep() -> bool:
+    """True where the cluster sweep kernel runs (the GPU); the oracle
+    runs everywhere else."""
+    return jax.default_backend() == "gpu"
 
 
-def _use_pallas() -> bool:
-    """TPU → Pallas Woop kernel; CPU → XLA oracle (also the interpret-
-    mode reference). Override with MQ_INTERSECT=oracle|woop."""
-    mode = os.environ.get("MQ_INTERSECT", "auto")
-    if mode == "oracle":
-        return False
-    if mode == "woop":
-        return True
-    return jax.default_backend() == "tpu"
+def _sort_order(o: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
+    """Ray order for the sweep: direction octant + dominant-axis pair in
+    the high bits (rays of one block share signs and a main axis), then
+    the origin's Morton code (locality)."""
+    lo = jnp.min(o, axis=0)
+    ext = jnp.maximum(jnp.max(o, axis=0) - lo, 1e-3)
+    q = jnp.clip((o - lo) / ext * 255.0, 0.0, 255.0).astype(jnp.uint32)
+
+    def spread(v):
+        v = (v | (v << 16)) & jnp.uint32(0x030000FF)
+        v = (v | (v << 8)) & jnp.uint32(0x0300F00F)
+        v = (v | (v << 4)) & jnp.uint32(0x030C30C3)
+        v = (v | (v << 2)) & jnp.uint32(0x09249249)
+        return v
+
+    morton = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+    pos = (d >= 0).astype(jnp.uint32)
+    octant = pos[:, 0] | (pos[:, 1] << 1) | (pos[:, 2] << 2)
+    ad = jnp.abs(d)
+    axis = (ad[:, 0] > ad[:, 2]).astype(jnp.uint32) | (
+        (ad[:, 1] > ad[:, 2]).astype(jnp.uint32) << 1
+    )
+    key = (octant << 26) | (axis << 24) | (morton & jnp.uint32(0xFFFFFF))
+    return jnp.argsort(key)
 
 
 def intersect(
@@ -62,28 +83,37 @@ def intersect(
     t_min,
     t_max,
     chunk: int = 128,
-    ray_block: int = 1 << 16,
-    sort_rays: bool = False,
+    mask: int = MASK_CANDIDATE,
 ) -> HitRecord:
-    """Nearest front-facing candidate hit. o, d: f32[N, 3].
+    """Nearest front-facing hit on triangles carrying a ``mask`` bit.
 
-    On TPU this dispatches to the Pallas Woop kernel (accel/woop.py);
-    the XLA path below is the correctness oracle (used on CPU and by
-    the kernel equivalence tests). Large ray batches are processed in
-    sequential blocks of ``ray_block`` rays (lax.map) to bound the
-    (rays × chunk) intermediate working set.
+    o, d: f32[N, 3]. The cluster sweep on the GPU, ``intersect_oracle``
+    elsewhere (``chunk`` is the oracle's triangle slice).
     """
-    if _use_pallas():
-        from .woop import intersect_woop
+    if use_sweep():
+        return HitRecord(*sweep.sweep_nearest(accel, o, d, t_min, t_max,
+                                              bit=mask))
+    return intersect_oracle(accel, o, d, t_min, t_max, chunk=chunk,
+                            mask=mask)
 
-        # coherent/primary (unsorted) packets: rb=1024 measured best on
-        # chip (125.4 ms vs 132.9 at rb=4096, scripts/gbuffer_anatomy_r5)
-        # — tight frustums cull better at small blocks; sorted bounce
-        # paths keep their own rb=4096 default inside intersect_woop
-        return intersect_woop(
-            accel, o, d, t_min, t_max, sort_rays=sort_rays,
-            ray_block=4096 if sort_rays else 1024,
-        )
+
+def intersect_oracle(
+    accel: AccelScene,
+    o: jnp.ndarray,
+    d: jnp.ndarray,
+    t_min,
+    t_max,
+    chunk: int = 128,
+    ray_block: int = 1 << 16,
+    mask: int = MASK_CANDIDATE,
+) -> HitRecord:
+    """Dense reference: every ray against every triangle.
+
+    A ``lax.scan`` over ``chunk``-triangle slices keeps a running
+    min-reduction. Large ray batches are processed in sequential blocks
+    of ``ray_block`` rays (lax.map) to bound the (rays × chunk)
+    intermediate working set.
+    """
     n_rays = o.shape[0]
     if n_rays > ray_block:
         t_min = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (n_rays,))
@@ -97,9 +127,9 @@ def intersect(
         nb = o.shape[0] // ray_block
         blocks = lambda x, s: x.reshape((nb, ray_block) + s)
         out = jax.lax.map(
-            lambda xs: intersect(
+            lambda xs: intersect_oracle(
                 accel, xs[0], xs[1], xs[2], xs[3], chunk=chunk,
-                ray_block=ray_block,
+                ray_block=ray_block, mask=mask,
             ),
             (blocks(o, (3,)), blocks(d, (3,)), blocks(t_min, ()), blocks(t_max, ())),
         )
@@ -117,7 +147,7 @@ def intersect(
     v0 = scene.v0.reshape(n_chunks, chunk, 3)
     v1 = scene.v1.reshape(n_chunks, chunk, 3)
     v2 = scene.v2.reshape(n_chunks, chunk, 3)
-    cand = accel.candidate.reshape(n_chunks, chunk)
+    cand = ((accel.tri_mask & mask) != 0).reshape(n_chunks, chunk)
     base = (jnp.arange(n_chunks, dtype=jnp.int32) * chunk)
 
     t_min = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), o.shape[:-1])
@@ -187,6 +217,7 @@ def trace_nearest(
     max_intersections: int = materials.MAX_INTERSECTIONS,
     chunk: int = 128,
     sort_rays: bool = False,
+    mask: int = MASK_CANDIDATE,
 ) -> HitRecord:
     """Nearest *accepted* hit: runs the alpha-test re-trace loop.
 
@@ -194,14 +225,23 @@ def trace_nearest(
     intersect sweep with no re-trace loop; callers pass None when the
     static SceneFeatures.has_alpha_tris flag says no triangle can ever
     alpha-reject, compiling out ~40% of the trace cost).
+
+    ``sort_rays`` (incoherent bounce rays): on the sweep path the rays
+    are traced in octant/Morton order, so that a block's rays share
+    clusters, and the results are put back in the caller's order.
     """
-    if tex is None:
-        return intersect(
-            accel, o, d, t_min, t_max, chunk=chunk, sort_rays=sort_rays
-        )
     n = o.shape[0]
-    t_min0 = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (n,))
+    t_min = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (n,))
     t_max = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (n,))
+    if sort_rays and use_sweep():
+        order = _sort_order(o, d)
+        hr = trace_nearest(
+            accel, tex, o[order], d[order], t_min[order], t_max[order],
+            max_intersections, chunk, mask=mask,
+        )
+        return HitRecord(*[jnp.zeros_like(x).at[order].set(x) for x in hr])
+    if tex is None:
+        return intersect(accel, o, d, t_min, t_max, chunk=chunk, mask=mask)
 
     def cond(state):
         i, active, _, _ = state
@@ -209,17 +249,13 @@ def trace_nearest(
 
     def body(state):
         i, active, cur_tmin, result = state
-        hr = intersect(
-            accel, o, d, cur_tmin, t_max, chunk=chunk, sort_rays=sort_rays
-        )
-        if tex is not None:
-            needs = jnp.take(accel.needs_alpha, jnp.maximum(hr.tri, 0)) & hr.hit
-            uv = _hit_uv(accel, hr)
-            texnum = jnp.take(accel.scene.texnum, jnp.maximum(hr.tri, 0))
-            a = atlas_mod.sample_nearest(tex, texnum, uv)[..., 3]
-            reject = needs & (a < materials.ALPHA_THRESHOLD)
-        else:
-            reject = jnp.zeros((n,), bool)
+        hr = intersect(accel, o, d, cur_tmin, t_max, chunk=chunk, mask=mask)
+        tri = jnp.maximum(hr.tri, 0)
+        needs = jnp.take(accel.needs_alpha, tri) & hr.hit
+        uv = _hit_uv(accel, hr)
+        texnum = jnp.take(accel.scene.texnum, tri)
+        a = atlas_mod.sample_nearest(tex, texnum, uv)[..., 3]
+        reject = needs & (a < materials.ALPHA_THRESHOLD)
         accept = active & ~reject
         result = HitRecord(
             t=jnp.where(accept, hr.t, result.t),
@@ -236,7 +272,7 @@ def trace_nearest(
         u=jnp.zeros((n,)),
         v=jnp.zeros((n,)),
     )
-    state = (0, jnp.ones((n,), bool), t_min0, init_result)
+    state = (0, jnp.ones((n,), bool), t_min, init_result)
     _, _, _, result = jax.lax.while_loop(cond, body, state)
     return result
 
@@ -248,46 +284,33 @@ def trace_visibility(
     to_pos: jnp.ndarray,
     offset: float = 1e-3,
     chunk: int = 128,
-    sort_rays: bool = False,
 ) -> jnp.ndarray:
     """Visibility between points; sky hits count as visible
     (raytrace.glsl:122-145).
 
-    TPU path: occlusion-only any-hit sweep on the shadow Woop table
-    (sky/alpha zeroed — see build_accel) — no winner bookkeeping and
-    fully occluded ray blocks exit at their first hit cluster. Alpha-
-    tested triangles are resolved exactly by a nearest+alpha-loop
-    trace on the alpha-only table (tiny: its clusters cover only
-    fence-like geometry). One divergence from the oracle: a surface
-    BEHIND a sky polygon still occludes (the oracle commits the nearer
-    sky hit and calls the ray visible) — real maps keep sky as the
-    outermost shell, so no such surface exists.
+    Sweep path: an any-hit sweep over the occluder triangles (not sky,
+    not alpha-tested), whose blocks stop once every ray is occluded;
+    then the alpha-tested triangles alone are resolved exactly by the
+    nearest + alpha-loop trace. Without ``tex`` the alpha-tested
+    triangles occlude like opaque ones, as on the oracle path. One
+    divergence from the oracle: a surface BEHIND a sky polygon still
+    occludes (the oracle commits the nearer sky hit and calls the ray
+    visible) — real maps keep sky as the outermost shell, so no such
+    surface exists.
     """
     wo = to_pos - from_pos
     dist = jnp.linalg.norm(wo, axis=-1)
     d = wo / jnp.maximum(dist, 1e-20)[..., None]
     t_max = jnp.maximum(offset, dist - 2.0 * offset)
-    if _use_pallas():
-        from .woop import intersect_woop_any
-
-        occ = intersect_woop_any(
-            accel, from_pos, d, offset, t_max, sort_rays=sort_rays
-        )
-        vis = ~occ
-        if tex is not None and accel.woop_w_alpha is not None:
-            aacc = accel._replace(
-                woop_w=accel.woop_w_alpha,
-                cluster_lo=accel.cluster_lo_alpha,
-                cluster_hi=accel.cluster_hi_alpha,
-                woop_w_fine=None,
-                cluster_lo_fine=None,
-                cluster_hi_fine=None,
-            )
-            hr = trace_nearest(
-                aacc, tex, from_pos, d, offset, t_max, chunk=chunk
-            )
-            vis &= ~hr.hit
-        return vis
+    if use_sweep():
+        if tex is None:
+            return ~sweep.sweep_any(accel, from_pos, d, offset, t_max,
+                                    bit=MASK_OCCLUDER | MASK_ALPHA)
+        occ = sweep.sweep_any(accel, from_pos, d, offset, t_max,
+                              bit=MASK_OCCLUDER)
+        hr = trace_nearest(accel, tex, from_pos, d, offset, t_max,
+                           chunk=chunk, mask=MASK_ALPHA)
+        return ~occ & ~hr.hit
     hr = trace_nearest(accel, tex, from_pos, d, offset, t_max, chunk=chunk)
     flags = jnp.take(accel.scene.flags, jnp.maximum(hr.tri, 0))
     sky = flags == materials.MAT_FLAGS_SKY

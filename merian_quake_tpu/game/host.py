@@ -16,19 +16,12 @@ holds no file formats.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 from dataclasses import dataclass, field
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-)
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libmq_game.so")
 
 _c_float_p = ctypes.POINTER(ctypes.c_float)
 _c_i32_p = ctypes.POINTER(ctypes.c_int32)
@@ -39,13 +32,9 @@ def _load() -> ctypes.CDLL:
     global _LIB, _TRIED
     if _LIB is not None:
         return _LIB
-    if not os.path.exists(_LIB_PATH):
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR, "libmq_game.so"],
-            check=True,
-            capture_output=True,
-        )
-    lib = ctypes.CDLL(_LIB_PATH)
+    from ..utils.native import build
+
+    lib = ctypes.CDLL(build("libmq_game.so"))
     lib.mq_game_create.restype = ctypes.c_void_p
     lib.mq_game_load_progs.argtypes = [
         ctypes.c_void_p, _c_u8_p, ctypes.c_longlong, ctypes.c_int]

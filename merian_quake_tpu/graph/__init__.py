@@ -1,6 +1,6 @@
 """Declarative frame graph with typed connectors and delayed edges.
 
-TPU-native equivalent of merian's ``merian_nodes::Graph<>`` (SURVEY
+Equivalent of merian's ``merian_nodes::Graph<>`` (SURVEY
 §2.4): nodes declare named inputs/outputs, connections wire them (with
 an optional one-frame delay — the reference's ``("prev_gbuffer", 1)``
 connectors and history self-loops), the graph topologically orders the

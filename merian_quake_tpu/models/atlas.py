@@ -1,6 +1,6 @@
 """Texture atlas: host-side packing + device-side sampling.
 
-TPU-native replacement of the reference's 4096-slot descriptor array of
+Replacement of the reference's 4096-slot descriptor array of
 sampled images (``img_tex[MAX_GLTEXTURES]``, gbuffer.comp:34): one big
 2D atlas plus a rect table, sampled with vectorized gathers. sRGB decode
 and the reference's pow(1/1.2) albedo transform (raytrace.glsl:289) are

@@ -2,7 +2,7 @@
 
 Design: the reference feeds its kernels 16 instance-local buffer pairs
 (vtx/prev_vtx/idx/ext, quake_node.hpp:181-193) plus a 4096-entry texture
-array. On TPU we flatten everything to ONE world-space triangle soup in
+array. We flatten everything to ONE world-space triangle soup in
 structure-of-arrays form, padded to a static size — instances are a
 host-side concept (the game layer concatenates per-model triangles each
 frame and the array shape stays constant across frames so nothing
@@ -20,7 +20,7 @@ from . import materials
 
 # Triangles are grouped into fixed-size clusters for the two-level
 # intersection structure (accel/). Scene arrays are padded to a multiple.
-CLUSTER_SIZE = 64  # round-3 retune: 64-tri tiles + 4096-ray blocks beat 128/2048 by ~20% (reach gates skip more pair waste, fixed costs amortize over bigger blocks); r4 re-check: 64 still beats 128 (1016 vs 1037 ms) and 32 (1041)
+CLUSTER_SIZE = 64
 
 
 class TextureAtlas(NamedTuple):

@@ -58,9 +58,8 @@ def _hash2_coords(vals) -> jnp.ndarray:
 def quantize_normal(normal: jnp.ndarray) -> jnp.ndarray:
     """Dominant-axis bucket 0..5 so states are split per face orientation.
 
-    Pure selects — argmax + take_along_axis lower to an M-row gather on
-    TPU (~27 ns/row serial; measured 200 ms at 8.3M rows) while this
-    fuses into the surrounding elementwise graph for ~free.
+    Pure selects instead of argmax + take_along_axis (an M-row gather):
+    they fuse into the surrounding elementwise graph.
     """
     nx, ny, nz = normal[..., 0], normal[..., 1], normal[..., 2]
     ax, ay, az = jnp.abs(nx), jnp.abs(ny), jnp.abs(nz)
@@ -79,8 +78,7 @@ def _tiled_slot(idx, extra, size, tile_bits: int):
     Spatially-adjacent cells land in adjacent table rows, so the guide
     draws of neighboring pixels/samples — which address neighboring
     cells — coalesce into the same HBM region instead of fully random
-    rows (measured ~48 ns/row random at the 33.6M-row production table
-    vs ~6 ns with locality; docs/perf_notes_r3.md). Collision RATE is
+    rows. Collision RATE is
     unchanged (same load factor); collisions become tile-correlated,
     which the 16-bit verification hash detects per cell as before.
     Arithmetic shift + mask give consistent floor semantics for

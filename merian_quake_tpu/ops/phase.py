@@ -60,9 +60,9 @@ def draine_inverse_cdf_table(g, alpha, size=DRAINE_TABLE_SIZE):
 
     (g, alpha) are per-frame constants in the reference (computed from
     the fog particle size, render_mcpg.cpp:134-135), so a per-frame
-    host-precomputed table is the TPU-native choice: the closed-form
+    host-precomputed table is the natural choice: the closed-form
     inversion (Jendersie & d'Eon 2023) catastrophically cancels in
-    float32 at strong anisotropy, and TPUs have no float64.
+    float32 at strong anisotropy, and the device path stays in float32.
 
     Returns float32[size] mapping u in [0,1) (left bin edges) → cos_t.
     """

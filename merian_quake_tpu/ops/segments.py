@@ -1,18 +1,13 @@
-"""Sort-based segmented reductions — the TPU substitute for
-duplicate-heavy scatter aggregation.
+"""Sort-based segmented reductions in place of duplicate-heavy scatter
+aggregation.
 
 The reference applies Markov-chain / light-cache updates with device
 atomics (atomicAdd queue cursors, spinlocks: render_mcpg/mc.glsl:159-203,
-light_cache.glsl:54-84). TPUs have no general atomics, and the XLA
-fallback — `.at[cells].add(rows)` with millions of duplicate indices —
-serializes: measured on a v5e chip, ONE (8.3M,16)→(147k,16) scatter-add
-costs ~140 ms and a narrow (8.3M,) one ~56 ms, while a 16-column two-key
-sort of the same rows costs ~25 ms and a cumsum is ~free.
-
-Gathers/scatters indexed by an M-sized vector are just as pathological
-(XLA lowers them to a serial per-row loop, ~27-60 ns/row: a (8.3M,8)
-take is ~227 ms) — EXCEPT gathers from tables small enough to stream
-(~4 ns/row). So the design rules here are:
+light_cache.glsl:54-84). This module aggregates without atomics or
+duplicate-index scatter-adds (`.at[cells].add(rows)` with millions of
+duplicate indices), and keeps gathers indexed by an M-sized vector off
+the hot path. Whether XLA's GPU scatter-add (atomics) beats the sort is
+not measured yet. The design rules here are:
 
 1. aggregate by sorting rows by cell (contiguous segments; a secondary
    key parks a chosen "winner" row at each segment END);

@@ -13,7 +13,7 @@ tests/test_parallel.py, atol 2e-6..1e-3; see PARITY.md §2.6).
 """
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
@@ -145,22 +145,29 @@ def render_frame_sharded(
 
     Returns (new_state, ldr image, hdr image) — all sharded along rows.
     For the MCPG integrator the per-shard update queues are all-gathered
-    over the mesh (ICI collective) and every device replays the global
-    set into its replicated guiding state. ``hdr`` is the pre-FXAA
-    beauty (the continuous chain — the right target for bit-identity
-    checks; FXAA's discrete edge branches amplify f32 reassociation
-    noise into visible but benign local flips).
+    over the mesh and every device replays the global set into its
+    replicated guiding state. ``hdr`` is the pre-FXAA beauty (the
+    continuous chain — the right target for bit-identity checks; FXAA's
+    discrete edge branches amplify f32 reassociation noise into visible
+    but benign local flips).
     """
-    n = mesh.devices.size
-    assert config.height % n == 0, (config.height, n)
-    rows = config.height // n
-    specs = _state_specs(state)
-
-    @partial(
-        jax.jit,
-        static_argnames=("cfg", "mcfg"),
+    assert config.height % mesh.devices.size == 0, (
+        config.height, mesh.devices.size,
     )
+    step = _sharded_step(mesh, _state_specs(state))
+    return step(accel, atlas, uniforms, state, config, mcpg_config)
+
+
+@lru_cache(maxsize=None)
+def _sharded_step(mesh: Mesh, specs: FrameState):
+    """The jitted sharded frame for one mesh and state layout, built once:
+    a jit made anew per call would trace and compile every frame."""
+    n = mesh.devices.size
+
+    @partial(jax.jit, static_argnames=("cfg", "mcfg"))
     def step(accel, atlas, uniforms, state, cfg, mcfg):
+        rows = cfg.height // n
+
         def slab(accel, atlas, uniforms, state_slab):
             idx = jax.lax.axis_index(AXIS)
             y0 = idx * rows
@@ -199,7 +206,7 @@ def render_frame_sharded(
             )
             return new_state, outputs["ldr"], outputs["hdr"]
 
-        # check_vma=False: scan/while carries in the intersector are
+        # check_vma=False: loop carries in the intersector are
         # initialized from replicated constants and become varying in
         # the loop body — semantically fine, but the static VMA check
         # would require pcast-ing every init deep in the accel layer.
@@ -212,4 +219,4 @@ def render_frame_sharded(
         )
         return sharded(accel, atlas, uniforms, state)
 
-    return step(accel, atlas, uniforms, state, config, mcpg_config)
+    return step

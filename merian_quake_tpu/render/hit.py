@@ -3,8 +3,7 @@
 Mirrors /root/reference/res/shader/hit.glsl.h: ``Hit`` carries positions
 and material at a surface interaction; ``CompressedHit`` is the gbuffer
 → integrator handoff format (octahedral-encoded directions, low-precision
-mv/albedo/roughness). The reference stores f16; we use bfloat16 (TPU's
-native half type). Note the reference has a latent layout inconsistency
+mv/albedo/roughness). The reference stores f16; we use bfloat16. Note the reference has a latent layout inconsistency
 (ReSTIR/SSMM read the same buffer as uncompressed, SURVEY §2.2) — here
 one format is used everywhere.
 """

@@ -1,14 +1,14 @@
 """Markov Chain Path Guiding (MCPG) — the flagship integrator.
 
-TPU-native rebuild of /root/reference/src/render_mcpg + its kernels
+Rebuild of /root/reference/src/render_mcpg + its kernels
 (mcpg.comp, compute_updates.comp, mc.glsl, light_cache.glsl,
 volume.comp): two world-space hash grids of Markov-chain vMF states
 guide path directions; paths emit update samples that are replayed into
 the chains in a second phase; a light cache stores EWA irradiance for
 path tails and volume NEE.
 
-Device atomics (update queue, light-cache spinlock) do not exist on
-TPU. The reference's own two-phase design is already the right shape
+Device atomics (update queue, light-cache spinlock) are not used. The
+reference's own two-phase design is already the right shape
 (SURVEY §2.6): updates become dense masked sample arrays, grouped by
 cell with scatter/segment reductions, replayed with a batched EWA and
 an exponential-race weighted-reservoir winner per cell.

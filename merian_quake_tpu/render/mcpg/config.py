@@ -95,19 +95,12 @@ class MCPGConfig(NamedTuple):
     # body (guide draws, sampling, MIS, trace, light cache, queue
     # emission) on the static live prefix only, falling back to full
     # width via lax.cond when the prefix would overflow — exact either
-    # way. See docs/perf_notes_r5.md for measured live fractions.
+    # way. Off by default: no GPU measurement yet.
     surf_live_budget: tuple = ()
     # locality-preserving guide-table layout: cells hashed per TILE of
-    # 8^b cells, placed at consecutive rows within the tile's bucket
-    # (built for VERDICT r3 #3). MEASURED A LOSS on chip and left OFF:
-    # XLA's TPU row gather is locality-INSENSITIVE — a direct probe on
-    # the 33.6M-row production table timed tile-local and sequential
-    # indices at ~30 ns/row vs ~16 ns fully random (scripts/
-    # perf_probe_r4.py methodology), and the production frame ran
-    # 3610 ms untiled vs 3690 tiled. The r3 hypothesis that a
-    # locality-preserving layout would recover the small-table gather
-    # rate is disproven; kept as a knob for future backends. Same load
-    # factor / collision rate as the reference layout either way
+    # 8^b cells, placed at consecutive rows within the tile's bucket.
+    # Off by default; its effect on the GPU is not measured yet. Same
+    # load factor / collision rate as the reference layout either way
     # (mc.glsl:60-111). Applies to both MC grids and the light cache.
     grid_tile_bits: int = 0
     # volume single scattering (None = surface only); see volume.py

@@ -2,7 +2,7 @@
 
 Port of render_mcpg/light_cache.glsl. The reference serializes writers
 with a per-cell spinlock whose loser samples are DROPPED (at most one
-update per cell per frame; losses counted in update_canceled). On TPU
+update per cell per frame; losses counted in update_canceled). Here
 the same cadence is kept — one EWA step per cell per frame — but the
 step uses the MEAN of the frame's samples for that cell instead of an
 arbitrary lock winner (strictly lower estimator variance; divergence
@@ -48,10 +48,9 @@ def _lc_cell(rng_state, pos, normal, level, cfg: MCPGConfig):
 
 def _pack_lc(lc: LightCache) -> jnp.ndarray:
     """(L, 5) i32 table [hash, irr(3 bitcast), N]: ONE row-gather per
-    lookup instead of three (row-gather cost is per ROW, not per byte
-    — measured ~3x on the M-ray lc_get). Integer lanes, because f32
-    lanes canonicalize NaN payloads / flush denormals on TPU, which
-    would corrupt hash bits riding a float gather."""
+    lookup instead of three (row-gather cost is per ROW, not per
+    byte). Integer lanes, so that hash bits riding the gather are never
+    touched by float canonicalization."""
     f2i = lambda x: jax.lax.bitcast_convert_type(x, jnp.int32)
     return jnp.concatenate(
         [f2i(lc.hash)[:, None], f2i(lc.irr), lc.N[:, None]], axis=1
@@ -108,8 +107,8 @@ def lc_update_batch(
     (rng, new lc, applied_cells, merged_samples).
 
     Aggregation is sort-based and COMPACT-FIRST (ops/segments.py):
-    duplicate-index scatter-adds and M-row gathers both serialize on
-    TPU, so after one sort the per-cell math runs entirely on the
+    no duplicate-index scatter-adds or M-row gathers: after one sort
+    the per-cell math runs entirely on the
     compacted segment-end rows (≤ update_cell_capacity), and only
     capacity-row scatters touch the cache arrays. Per-cell mean
     irradiance comes from cumulative-sum differences at compacted end
@@ -170,8 +169,7 @@ def lc_update_batch(
     rep_idx = jnp.maximum(segments.take_compact(comp, idx_s), 0)
     f2i = lambda x: jax.lax.bitcast_convert_type(x, jnp.int32)
     i2f = lambda x: jax.lax.bitcast_convert_type(x, jnp.float32)
-    # integer lanes: f32 lanes canonicalize NaN payloads / flush
-    # denormals on TPU, which would corrupt the hash bits
+    # integer lanes: the hash bits must survive the gather unchanged
     rep_tab = jnp.concatenate(
         [
             f2i(pos), f2i(normal), f2i(level)[:, None],

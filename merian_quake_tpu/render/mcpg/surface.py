@@ -6,8 +6,8 @@ hash grids (adaptive w.p. mc_samples_adaptive_prob, else static),
 reservoir-selects a winner by sum_w, samples the outgoing direction
 defensively (BSDF w.p. surf_bsdf_p, else the winner's vMF lobe), and
 MIS-combines the vMF mixture with the BSDF pdf. Paths emit light-cache
-samples and Markov-chain update samples into dense masked queues (the
-TPU replacement for the atomic update buffer), plus fast-recovery zero
+samples and Markov-chain update samples into dense masked queues (in
+place of the reference's atomic update buffer), plus fast-recovery zero
 requests for vanished lights.
 
 RNG note: the draw ORDER differs from the GLSL (both grid cells are
@@ -41,8 +41,8 @@ class UpdateQueue(NamedTuple):
     PACKED at emission into one i32 matrix — apply_updates' compaction
     gather then reads one table instead of first materializing a
      15-column concat of the whole frame queue (~500 MB of pure
-    bandwidth at 1080p). Integer lanes: f32 lanes canonicalize NaN
-    payloads / flush denormals on TPU. Column layout (15):
+    bandwidth at 1080p). Integer lanes carry the f32 bits unchanged.
+    Column layout (15):
     [w, target(3), mv(3), pos(3), normal(3), id, cell] — dead rows
     carry the sentinel cell (>= mc_total_size), encoding the mask.
     """
@@ -269,9 +269,9 @@ def render_mcpg_surface(
 
         # ---- draw K guide states, reservoir-select by sum_w ----
         # STRATIFIED grid choice: the reference Bernoulli(p)-picks
-        # adaptive vs static per draw (mcpg.comp:74-111), which on
-        # TPU means computing BOTH grids' cell math + finalize for
-        # every draw (vector selects don't skip work). Here draw
+        # adaptive vs static per draw (mcpg.comp:74-111), which as
+        # dense vector code means computing BOTH grids' cell math +
+        # finalize for every draw (vector selects don't skip work). Here draw
         # slots are statically assigned — floor(K·p) adaptive,
         # K−ceil(K·p) static, one Bernoulli(frac) boundary slot —
         # so all but one draw run ONE grid's math. Draws are

@@ -1,4 +1,4 @@
-"""Two-phase Markov-chain update replay (TPU formulation, sort-based).
+"""Two-phase Markov-chain update replay (sort-based).
 
 Port of res/shader/render_mcpg/compute_updates.comp. The reference
 replays ≤10 queued samples per cell sequentially (EWA chain update with
@@ -6,11 +6,10 @@ id-mismatch chain restarts), weighted-reservoir-samples one winning
 state, and stochastically writes the winner into BOTH grids keeping the
 incumbent with probability old.sum_w/(new+old).
 
-TPU adaptation (no atomics, no per-cell serial loops) — and no
-duplicate-index scatter-adds either: XLA lowers those to a serialized
-update loop (~140 ms per scatter for an 8.3M-row frame queue on v5e),
-so per-cell sample groups are formed by ONE two-key sort instead
-(~25 ms; see ops/segments.py):
+Formulation without atomics, per-cell serial loops or duplicate-index
+scatter-adds: per-cell sample groups are formed by ONE two-key sort
+(see ops/segments.py). Whether a direct segment scatter is faster on
+the GPU is not measured yet:
 
 - sort samples by (cell, negated reservoir race key): groups become
   contiguous segments and the race winner (Efraimidis–Spirakis:
@@ -47,8 +46,7 @@ _BIGF = jnp.float32(3e38)
 
 
 def _f2i(x):
-    """f32 → i32 lanes (safe: integer lanes never canonicalize bits —
-    the REVERSE direction flushes denormals/NaN payloads on TPU)."""
+    """f32 → i32 lanes (integer lanes carry the bits unchanged)."""
     return jax.lax.bitcast_convert_type(x, jnp.int32)
 
 
@@ -270,8 +268,7 @@ def apply_updates_compact(
     )
 
     # ---- 3. MC chain replay on the compacted rows ----
-    # narrow 2-column incumbent peek (id, sum_w) — row gathers from a
-    # packed table are the fast gather shape on TPU
+    # narrow 2-column incumbent peek (id, sum_w) from one packed table
     inc_tab = jnp.stack(
         [mc.i[:, 0], jax.lax.bitcast_convert_type(mc.f[:, 3], jnp.int32)],
         axis=1,
@@ -314,7 +311,7 @@ def apply_updates_compact(
     mv_s = jnp.stack([mvx, mvy, mvz], axis=1)
 
     # ---- compact to one row per touched cell; per-cell math runs on
-    # (cap,) rows only (M-row gathers/scatters serialize on TPU) ----
+    # (cap,) rows only (no M-row gathers/scatters) ----
     cap = int(min(S + 1, mcfg.update_cell_capacity))
     comp = segments.compact_indices(segs, cap)
     cell_c = segments.take_compact(comp, segs.cell, fill=S)

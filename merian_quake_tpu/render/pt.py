@@ -8,7 +8,7 @@ most MAX_PATH_LENGTH segments continued by GGX+diffuse BSDF sampling,
 path termination on found emission / dead throughput, contribution
 f/p with NaN/Inf rejection, and (luminance²) second-moment output in
 the alpha channel. Divergent per-pixel loops become fixed-trip masked
-lane updates — the TPU-native formulation.
+lane updates.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """ReSTIR DI — reservoir-based direct lighting with temporal/spatial reuse.
 
-TPU-native rebuild of /root/reference/src/render_restir +
+Rebuild of /root/reference/src/render_restir +
 res/shader/render_restir/* (weighted reservoir sampling per Bitterli et
 al. 2020; structure follows the reference's 4 passes: generate →
 temporal → spatial → shade). Reservoirs are SoA arrays over pixels;

@@ -420,7 +420,7 @@ def render_restir(
     dist_y = jnp.sqrt(jnp.maximum(jnp.sum(d * d, -1), 1e-12))
     wo = d / dist_y[..., None]
     if rcfg.visibility_shade:
-        # occlusion-only visibility (any-hit sweep on TPU) — the
+        # occlusion-only visibility (any-hit sweep on the GPU) — the
         # reference's shade-time shadow ray (restir_di.comp); replaces
         # an earlier full nearest trace whose hit was used only for a
         # distance comparison

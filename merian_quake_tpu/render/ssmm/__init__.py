@@ -1,6 +1,6 @@
 """Screen-Space Mixture Models (SSMM) guided path tracing.
 
-TPU-native rebuild of /root/reference/src/render_ssmm +
+Rebuild of /root/reference/src/render_ssmm +
 res/shader/render_ssmm/ssmm.comp (Dittebrandt et al. 2020 style;
 the reference is ported from VKDT with the author's approval).
 Per-pixel vMF Markov chains live in screen space; proposals are

@@ -9,12 +9,12 @@ material decode (solid color, waterfall, sprite/tele, fullbright
 emission with the ldr_to_hdr boost), motion vectors from prev-frame
 vertices. Every branch is a masked select over the full ray batch.
 
-TPU cost model notes: per-hit attributes come from ONE packed gather of
+Cost notes: per-hit attributes come from ONE packed gather of
 accel.tri_attr (f32[T, 40]) instead of ~12 per-field gathers, and the
 scene's static SceneFeatures flags compile out unused paths (sky
 layers, fullbright/gloss texture fetches, UV warp) — under XLA a
 "branch" is evaluated for every lane, so a scene without sky textures
-must not pay for sky sampling (3× frame-time difference measured).
+must not pay for sky sampling.
 """
 from __future__ import annotations
 
@@ -49,13 +49,13 @@ _SKY_BAKE_N = 256
 def _classic_sky(atlas: TextureAtlas, uniforms: Uniforms, w: jnp.ndarray):
     """Classic scrolling two-layer Quake sky (raytrace.glsl:36-43).
 
-    TPU cost note: the color is a function of q = w.xy/|w.z| alone and
+    Cost note: the color is a function of q = w.xy/|w.z| alone and
     is PERIODIC in q with period 1 (both layers scroll rigidly), so it
     is baked onto a 256² grid over one period — 65k lanes of the full
     two-layer bilinear math, CSE'd to once per frame across every
     trace_ray call — and each ray pays ONE row gather instead of the
     ~10 (2 × bilinear + rect) the direct evaluation costs on every
-    lane of every segment (~120 ms/frame per 2M-lane pass measured).
+    lane of every segment.
     256² samples one sky-period at 4× the 64² source resolution, so
     the nearest-neighbor lookup stays at bilinear quality; the sky
     compresses toward the horizon (|w.z| → 0) where the quantization
@@ -125,8 +125,8 @@ def _cubemap_sky(atlas: TextureAtlas, uniforms: Uniforms, w: jnp.ndarray):
         jnp.where(ay >= az, side_y, side_z),
     )
     safe = lambda a: jnp.maximum(a, 1e-4)
-    # select chains, not take_along_axis: an M-row gather serializes on
-    # TPU while 6 wheres fuse into the elementwise graph
+    # select chains, not take_along_axis: 6 wheres fuse into the
+    # elementwise graph, an M-row gather does not
     su = jnp.where(
         side <= 1, jnp.where(side == 0, -y, y),
         jnp.where(side == 2, x, jnp.where(side == 3, -x, -y)),
@@ -218,9 +218,8 @@ def trace_ray(
     """
     alpha_tex = atlas if features.has_alpha_tris else None
     # ``active`` (bool[N] or None): dead (masked) rays trace with
-    # t_max = -1 — they register no hits, contribute a negative horizon
-    # to their sweep block, and the sorted path packs them into
-    # trailing blocks that exit without one loop iteration. Callers
+    # t_max = -1 — they register no hits and take no part in their
+    # sweep block's cluster tests. Callers
     # must already be masking dead rays' results (this only makes them
     # uniformly MISS instead of computing a discarded hit).
     t_max = T_MAX if active is None else jnp.where(active, T_MAX, -1.0)

@@ -3,12 +3,13 @@
 The reference keeps its runtime around the GPU in C++ (Merian) and C
 (quakespasm); here the per-frame host hot path — acceleration-structure
 build — is native too (native/mq_native.cc), with numpy as the always-
-available fallback. The library auto-builds on first use if a compiler
-is present (``make -C native``).
+available fallback. The libraries are built from the committed sources
+on first use if a compiler is present (``make -C native``).
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 
@@ -24,6 +25,26 @@ _NATIVE_DIR = os.path.join(
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libmq_native.so")
 
 
+def build(target: str) -> str:
+    """Path of ``native/<target>``, built by make if missing.
+
+    A file lock serializes concurrent builds (test workers start
+    together); the Makefile renames a finished library into place, so a
+    process that finds the file never reads half of it.
+    """
+    path = os.path.join(_NATIVE_DIR, target)
+    if os.path.exists(path):
+        return path
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR, target],
+                check=True, capture_output=True, timeout=300,
+            )
+    return path
+
+
 def load() -> ctypes.CDLL | None:
     """Load (building if needed) the native library, or None."""
     global _LIB, _TRIED
@@ -32,19 +53,9 @@ def load() -> ctypes.CDLL | None:
     _TRIED = True
     if os.environ.get("MQ_NO_NATIVE"):
         return None
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except (OSError, subprocess.SubprocessError):
-            return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+        lib = ctypes.CDLL(build("libmq_native.so"))
+    except (OSError, subprocess.SubprocessError):
         return None
     f32p = ctypes.POINTER(ctypes.c_float)
     u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -52,7 +63,6 @@ def load() -> ctypes.CDLL | None:
     i64 = ctypes.c_int64
     lib.mq_morton_perm.argtypes = [f32p, f32p, f32p, u8p, u8p, i64, i32p]
     lib.mq_cluster_aabbs.argtypes = [f32p, f32p, f32p, u8p, i64, i64, f32p, f32p]
-    lib.mq_build_woop.argtypes = [f32p, f32p, f32p, u8p, i64, i64, f32p]
     lib.mq_version.restype = ctypes.c_int
     _LIB = lib
     return _LIB
@@ -100,17 +110,3 @@ def cluster_aabbs(v0, v1, v2, candidate, cluster_size: int):
         _fp(v0), _fp(v1), _fp(v2), _u8(cand), T, cluster_size, _fp(lo), _fp(hi)
     )
     return lo, hi
-
-
-def build_woop(v0, v1, v2, candidate, cluster_size: int):
-    lib = load()
-    if lib is None:
-        return None
-    T = v0.shape[0]
-    v0 = np.ascontiguousarray(v0, np.float32)
-    v1 = np.ascontiguousarray(v1, np.float32)
-    v2 = np.ascontiguousarray(v2, np.float32)
-    cand = np.ascontiguousarray(candidate, np.uint8).copy()
-    w = np.zeros((3 * T, 8), np.float32)
-    lib.mq_build_woop(_fp(v0), _fp(v1), _fp(v2), _u8(cand), T, cluster_size, _fp(w))
-    return w, cand.astype(bool)

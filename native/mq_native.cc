@@ -1,12 +1,11 @@
 // Native acceleration-structure builder for merian_quake_tpu.
 //
-// TPU-native equivalent of the runtime components the reference keeps in
+// Host-side counterpart of the runtime components the reference keeps in
 // C++ (Merian's DeviceASBuilder BLAS/TLAS build, quake_node.cpp:985-1012,
 // and the per-frame geometry extraction thread pool,
 // quake_node.cpp:896-983): per-frame work that must not sit on the Python
-// interpreter. Computes Morton-ordered triangle permutations, cluster
-// AABBs, and double-precision Woop unit-triangle matrices, writing the
-// packed layouts the Pallas kernels consume.
+// interpreter. Computes Morton-ordered triangle permutations and cluster
+// AABBs.
 //
 // Build: make -C native   (g++ -O3 -shared; no external dependencies)
 // Python binding: ctypes (merian_quake_tpu/utils/native.py).
@@ -33,30 +32,6 @@ inline uint64_t spread3(uint64_t v) {
 
 inline uint64_t morton3(uint32_t x, uint32_t y, uint32_t z) {
   return spread3(x) | (spread3(y) << 1) | (spread3(z) << 2);
-}
-
-// Invert a 3x3 matrix (column-major columns e1, e2, n). Returns false if
-// singular.
-bool invert3(const double m[9], double out[9]) {
-  const double a = m[0], b = m[3], c = m[6];
-  const double d = m[1], e = m[4], f = m[7];
-  const double g = m[2], h = m[5], i = m[8];
-  const double A = e * i - f * h;
-  const double B = -(d * i - f * g);
-  const double C = d * h - e * g;
-  const double det = a * A + b * B + c * C;
-  if (std::fabs(det) < 1e-12) return false;
-  const double inv = 1.0 / det;
-  out[0] = A * inv;
-  out[1] = -(b * i - c * h) * inv;
-  out[2] = (b * f - c * e) * inv;
-  out[3] = B * inv;
-  out[4] = (a * i - c * g) * inv;
-  out[5] = -(a * f - c * d) * inv;
-  out[6] = C * inv;
-  out[7] = -(a * h - b * g) * inv;
-  out[8] = (a * e - b * d) * inv;
-  return true;
 }
 
 void parallel_for(int64_t n, const std::function<void(int64_t, int64_t)>& fn) {
@@ -140,46 +115,6 @@ void mq_cluster_aabbs(const float* v0, const float* v1, const float* v2,
       for (int k = 0; k < 3; ++k) {
         lo_out[c * 3 + k] = lo[k];
         hi_out[c * 3 + k] = hi[k];
-      }
-    }
-  });
-}
-
-// Woop unit-triangle affine maps in the Pallas kernel layout (3T x 8,
-// per-chunk row blocks [row0s; row1s; row2s], columns 0-3 = [A | b]).
-// cand_io: in/out — zeroed for degenerate triangles.
-void mq_build_woop(const float* v0, const float* v1, const float* v2,
-                   uint8_t* cand_io, int64_t T, int64_t cluster_size,
-                   float* w_out /* float[3T*8], pre-zeroed by caller */) {
-  parallel_for(T, [&](int64_t a, int64_t b) {
-    for (int64_t t = a; t < b; ++t) {
-      double e1[3], e2[3], n[3];
-      for (int k = 0; k < 3; ++k) {
-        e1[k] = (double)v1[t * 3 + k] - v0[t * 3 + k];
-        e2[k] = (double)v2[t * 3 + k] - v0[t * 3 + k];
-      }
-      n[0] = e1[1] * e2[2] - e1[2] * e2[1];
-      n[1] = e1[2] * e2[0] - e1[0] * e2[2];
-      n[2] = e1[0] * e2[1] - e1[1] * e2[0];
-      // column-major [e1 e2 n]
-      const double m[9] = {e1[0], e1[1], e1[2], e2[0], e2[1],
-                           e2[2], n[0],  n[1],  n[2]};
-      double inv[9];
-      if (!invert3(m, inv)) {
-        cand_io[t] = 0;
-        continue;
-      }
-      const int64_t chunk = t / cluster_size;
-      const int64_t local = t % cluster_size;
-      for (int r = 0; r < 3; ++r) {
-        double brow = 0.0;
-        for (int k = 0; k < 3; ++k) brow -= inv[r * 3 + k] * v0[t * 3 + k];
-        float* row =
-            w_out + ((chunk * 3 + r) * cluster_size + local) * 8;
-        row[0] = (float)inv[r * 3 + 0];
-        row[1] = (float)inv[r * 3 + 1];
-        row[2] = (float)inv[r * 3 + 2];
-        row[3] = (float)brow;
       }
     }
   });

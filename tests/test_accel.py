@@ -1,7 +1,8 @@
-import os
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from merian_quake_tpu.accel import build_accel, intersect, trace_nearest
 from merian_quake_tpu.accel.intersect import trace_visibility
@@ -202,323 +203,230 @@ def test_scene_features_alpha_flag_and_no_alpha_fast_path():
     np.testing.assert_allclose(np.asarray(slow.t), np.asarray(fast.t))
 
 
-def test_woop_kernel_matches_oracle_including_misses(rng):
-    """Interpret-mode Woop kernel vs the XLA oracle on a random soup,
-    with rays that hit nothing (regression: an all-miss tile once
-    committed a false hit through the packed-min epilogue)."""
-    from merian_quake_tpu.accel.woop import intersect_woop
-
-    t = 256
+def _soup_accel(rng, t=256, flags=None, pad_to=None):
     c = rng.uniform(-40, 40, (t, 1, 3))
     tri = c + rng.uniform(-8, 8, (t, 3, 3))
     scene = build_scene_from_soup(
         tri[:, 0].astype(np.float32),
         tri[:, 1].astype(np.float32),
         tri[:, 2].astype(np.float32),
+        flags=flags,
+        pad_to=pad_to,
     )
-    acc = build_accel(scene)
-    n = 512
-    o = jnp.asarray(rng.uniform(-60, 60, (n, 3)).astype(np.float32))
+    return build_accel(scene)
+
+
+def _rays(rng, n, spread=60.0):
+    o = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    # half the rays point far away from the scene: guaranteed misses
-    o = o.at[: n // 2].set(jnp.asarray([500.0, 500.0, 500.0]))
-    d[: n // 2] = np.abs(d[: n // 2])  # away from the origin-centered soup
-    d = jnp.asarray(d)
-    hw = intersect_woop(acc, o, d, 0.0, 1e4, ray_block=256, interpret=True)
-    ho = intersect(acc, o, d, 0.0, 1e4)
-    np.testing.assert_array_equal(np.asarray(hw.tri), np.asarray(ho.tri))
-    hit = np.asarray(ho.tri) >= 0
-    assert (~hit[: n // 2]).any()  # the scenario really exercises misses
+    return o, d
+
+
+def _assert_hits_match(got, ref):
+    """Sweep vs oracle: same winner, t/u/v to the last few bits."""
+    tri, t_ref = np.asarray(ref.tri), np.asarray(ref.t)
+    np.testing.assert_array_equal(np.asarray(got[1]), tri)
+    hit = tri >= 0
     np.testing.assert_allclose(
-        np.asarray(hw.t)[hit], np.asarray(ho.t)[hit], rtol=1e-4, atol=1e-3
+        np.asarray(got[0])[hit], t_ref[hit], rtol=1e-5, atol=1e-3
     )
+    for k, ref_k in ((2, ref.u), (3, ref.v)):
+        np.testing.assert_allclose(
+            np.asarray(got[k])[hit], np.asarray(ref_k)[hit], atol=1e-4
+        )
+    assert (np.asarray(got[0])[~hit] >= 1e38).all()
 
 
-def test_woop_streaming_kernel_matches_resident(rng):
-    """The HBM-streaming sweep (big scenes) and the VMEM-resident sweep
-    (small scenes) must agree exactly; tests the deep prefetch pipeline
-    issue/wait/drain bookkeeping on the streaming path."""
-    from merian_quake_tpu.accel import woop
-    from merian_quake_tpu.accel.woop import intersect_woop
+@pytest.mark.parametrize("padded", [False, True], ids=["soup", "padded"])
+@pytest.mark.parametrize("ray_block", [32, 64, 128])
+def test_sweep_nearest_matches_oracle(rng, ray_block, padded):
+    """Interpret-mode sweep vs the oracle: misses (rays aimed away from
+    the soup), backfaces (random windings), per-ray t_min/t_max
+    (including empty intervals), and — padded — trailing clusters of
+    padding triangles that the sweep must skip."""
+    from merian_quake_tpu.accel import sweep
+    from merian_quake_tpu.accel.intersect import intersect_oracle
 
-    t = 512
-    c = rng.uniform(-40, 40, (t, 1, 3))
-    tri = c + rng.uniform(-6, 6, (t, 3, 3))
-    scene = build_scene_from_soup(
-        tri[:, 0].astype(np.float32),
-        tri[:, 1].astype(np.float32),
-        tri[:, 2].astype(np.float32),
-    )
-    acc = build_accel(scene)
+    acc = _soup_accel(rng, pad_to=1024 if padded else None)
+    cmask = np.asarray(acc.cluster_mask)
+    if padded:
+        assert (cmask == 0).sum() >= 8  # empty clusters present
+    n = 384
+    o, d = _rays(rng, n)
+    o[: n // 4] = 500.0
+    d[: n // 4] = np.abs(d[: n // 4])  # guaranteed misses
+    t_min = rng.uniform(0.0, 20.0, n).astype(np.float32)
+    t_max = np.where(
+        rng.random(n) < 0.1, -1.0, rng.uniform(10.0, 300.0, n)
+    ).astype(np.float32)
+    args = (jnp.asarray(o), jnp.asarray(d), t_min, t_max)
+    got = sweep.sweep_nearest(acc, *args, bit=1, ray_block=ray_block)
+    ref = intersect_oracle(acc, *args)
+    _assert_hits_match(got, ref)
+    hit = np.asarray(ref.tri) >= 0
+    assert hit.any() and (~hit[: n // 4]).all()
+
+
+def test_sweep_ray_count_not_multiple_of_block(rng):
+    """N = 3·64 + 5 rays: the padded tail is idle and sliced off."""
+    from merian_quake_tpu.accel import sweep
+    from merian_quake_tpu.accel.intersect import intersect_oracle
+
+    acc = _soup_accel(rng)
+    o, d = _rays(rng, 3 * 64 + 5, spread=30.0)
+    got = sweep.sweep_nearest(acc, o, d, 0.0, 1e4, bit=1, ray_block=64)
+    assert all(x.shape == (3 * 64 + 5,) for x in got)
+    ref = intersect_oracle(acc, jnp.asarray(o), jnp.asarray(d), 0.0, 1e4)
+    _assert_hits_match(got, ref)
+    occ = sweep.sweep_any(acc, o, d, 0.0, 1e4, bit=2, ray_block=64)
+    assert occ.shape == (3 * 64 + 5,) and occ.dtype == jnp.bool_
+
+
+def test_sweep_anyhit_matches_oracle_occlusion_with_sky(rng):
+    """Any-hit over the occluder bit vs the oracle restricted to the same
+    mask, on a soup where a third of the triangles are sky (which passes
+    light and must never occlude), with per-ray t_max."""
+    from merian_quake_tpu.accel import sweep
+    from merian_quake_tpu.accel.build import MASK_OCCLUDER
+    from merian_quake_tpu.accel.intersect import intersect_oracle
+
+    t = 384
+    flags = np.where(
+        rng.random(t) < 0.33, materials.MAT_FLAGS_SKY, 0
+    ).astype(np.int32)
+    acc = _soup_accel(rng, t=t, flags=flags)
     n = 512
-    o = jnp.asarray(rng.uniform(-60, 60, (n, 3)).astype(np.float32))
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d)
-    res = intersect_woop(
-        acc, o, d, 0.0, 1e4, ray_block=128, interpret=True, resident=True
+    o, d = _rays(rng, n)
+    t_max = rng.uniform(1.0, 200.0, n).astype(np.float32)
+    occ = np.asarray(
+        sweep.sweep_any(acc, o, d, 1e-3, t_max, bit=MASK_OCCLUDER,
+                        ray_block=64)
     )
-    stream = intersect_woop(
-        acc, o, d, 0.0, 1e4, ray_block=128, interpret=True, resident=False
+    ref = intersect_oracle(
+        acc, jnp.asarray(o), jnp.asarray(d), 1e-3, t_max, mask=MASK_OCCLUDER
     )
-    np.testing.assert_array_equal(
-        np.asarray(stream.tri), np.asarray(res.tri)
-    )
-    np.testing.assert_array_equal(np.asarray(stream.t), np.asarray(res.t))
+    np.testing.assert_array_equal(occ, np.asarray(ref.hit))
+    # sky hits exist that the occluder mask ignores
+    every = intersect_oracle(acc, jnp.asarray(o), jnp.asarray(d), 1e-3, t_max)
+    assert (np.asarray(every.hit) & ~occ).any()
+    assert occ.any() and (~occ).any()
 
 
-def test_woop_partitioned_sweep_matches_resident(rng, monkeypatch):
-    """Round-5 partitioned resident sweep (_sweep_parts: tables larger
-    than the VMEM budget split into parts, chained through per-ray
-    best-t) must agree exactly with the single resident sweep —
-    exercises the winner-index chaining (idx >= 0 ⇔ this part improved)
-    and the any-hit chaining (occluded rays keep best_t = 0)."""
-    from merian_quake_tpu.accel.woop import (
-        intersect_woop, intersect_woop_any,
-    )
+def test_trace_visibility_alpha_grate_sweep_matches_oracle(rng, monkeypatch):
+    """Shadow rays through the court's alpha grates: the sweep path
+    (any-hit on occluders + nearest/alpha loop on the alpha-only bit)
+    agrees with the oracle path (nearest + alpha loop + sky test)."""
+    isect = importlib.import_module("merian_quake_tpu.accel.intersect")
 
-    t = 1024
-    c = rng.uniform(-40, 40, (t, 1, 3))
-    tri = c + rng.uniform(-6, 6, (t, 3, 3))
-    scene = build_scene_from_soup(
-        tri[:, 0].astype(np.float32),
-        tri[:, 1].astype(np.float32),
-        tri[:, 2].astype(np.float32),
-    )
-    acc = build_accel(scene)
+    bundle = procedural.outdoor_court()
+    acc = build_accel(bundle.scene, bundle.atlas)
     n = 256
-    o = jnp.asarray(rng.uniform(-60, 60, (n, 3)).astype(np.float32))
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d)
-    res = intersect_woop(
-        acc, o, d, 0.0, 1e4, ray_block=128, interpret=True, resident=True
+    a = np.stack([
+        np.full(n, 600.0), rng.uniform(110, 290, n), rng.uniform(10, 150, n)
+    ], 1).astype(np.float32)
+    b = np.stack([
+        rng.uniform(720, 1000, n), rng.uniform(50, 350, n),
+        rng.uniform(10, 300, n),
+    ], 1).astype(np.float32)
+    ref = np.asarray(trace_visibility(acc, bundle.atlas, a, b))
+    monkeypatch.setattr(isect, "use_sweep", lambda: True)
+    got = np.asarray(trace_visibility(acc, bundle.atlas, a, b))
+    np.testing.assert_array_equal(got, ref)
+    assert ref.any() and (~ref).any()  # holes pass, bars block
+
+
+@pytest.mark.parametrize("platform, expect", [("gpu", True), ("cpu", False)])
+def test_traversal_dispatch_by_platform(monkeypatch, platform, expect):
+    """The sweep runs on the GPU; the oracle on every other platform."""
+    isect = importlib.import_module("merian_quake_tpu.accel.intersect")
+
+    monkeypatch.setattr(isect.jax, "default_backend", lambda: platform)
+    assert isect.use_sweep() is expect
+    calls = []
+    monkeypatch.setattr(
+        isect.sweep, "sweep_nearest",
+        lambda *a, **k: calls.append("sweep") or (0, 0, 0, 0),
     )
-    occ_res = intersect_woop_any(
-        acc, o, d, 1e-3, 1e4, ray_block=128, interpret=True, resident=True
+    monkeypatch.setattr(
+        isect, "intersect_oracle",
+        lambda *a, **k: calls.append("oracle") or isect.HitRecord(0, 0, 0, 0),
     )
-    monkeypatch.setenv("MQ_PART_TRIS", "256")  # 4 parts of 4 clusters
-    part = intersect_woop(
-        acc, o, d, 0.0, 1e4, ray_block=128, interpret=True
+    isect.intersect(None, None, None, 0.0, 1.0)
+    assert calls == (["sweep"] if expect else ["oracle"])
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["nearest", "any"])
+def test_sweep_lowers_to_triton_for_cuda(rng, any_hit):
+    """Both kernel modes lower to a Triton module for the CUDA platform
+    (every primitive has a Triton lowering rule), without a card."""
+    import jax
+
+    from merian_quake_tpu.accel import sweep
+
+    acc = _soup_accel(rng)
+    o, d = _rays(rng, 100)
+
+    def f(acc, o, d):
+        return sweep._sweep(
+            acc, o, d, 0.0, 1e4, bit=1, any_hit=any_hit, ray_block=32,
+            interpret=False,
+        )
+
+    text = jax.jit(f).trace(acc, o, d).lower(
+        lowering_platforms=("cuda",)
+    ).as_text()
+    assert "__gpu$xla.gpu.triton" in text
+
+
+def test_trace_visibility_alpha_and_shadow_tables():
+    """build_accel's mask bits: sky triangles are candidates but not
+    occluders, alpha-tested ones carry the alpha bit instead of the
+    occluder bit, and each cluster's word is the OR of its triangles'."""
+    from merian_quake_tpu.accel.build import (
+        MASK_ALPHA, MASK_CANDIDATE, MASK_OCCLUDER,
     )
-    np.testing.assert_array_equal(np.asarray(part.tri), np.asarray(res.tri))
-    np.testing.assert_array_equal(np.asarray(part.t), np.asarray(res.t))
-    occ_part = intersect_woop_any(
-        acc, o, d, 1e-3, 1e4, ray_block=128, interpret=True
-    )
+    from merian_quake_tpu.models.types import CLUSTER_SIZE
+
+    bundle = procedural.outdoor_court()
+    acc = build_accel(bundle.scene, bundle.atlas)
+    mask = np.asarray(acc.tri_mask)
+    flags = np.asarray(acc.scene.flags)
+    valid = np.asarray(acc.scene.valid)
+    sky = flags == materials.MAT_FLAGS_SKY
+    cand = (mask & MASK_CANDIDATE) != 0
+    alpha = (mask & MASK_ALPHA) != 0
+    occl = (mask & MASK_OCCLUDER) != 0
+    assert sky.any() and alpha.any()
+    assert (cand == (valid & (np.asarray(acc.scene.alpha) < 0))).all()
+    assert cand[sky].all() and not occl[sky].any()
+    assert not occl[alpha].any() and not (alpha & ~cand).any()
+    assert (occl == (cand & ~sky & ~alpha)).all()
     np.testing.assert_array_equal(
-        np.asarray(occ_part), np.asarray(occ_res)
+        np.asarray(acc.cluster_mask),
+        np.bitwise_or.reduce(mask.reshape(-1, CLUSTER_SIZE), axis=1),
     )
-    assert np.asarray(res.tri).max() >= 0  # hits present
-    assert (np.asarray(res.tri) < 0).any()  # misses present
-
-
-def test_woop_anyhit_matches_oracle_occlusion(rng):
-    """Interpret-mode any-hit sweep vs oracle nearest-hit occlusion on
-    a random soup (no sky/alpha, so the semantics coincide exactly),
-    with per-ray t_max and guaranteed-miss rays."""
-    from merian_quake_tpu.accel.woop import intersect_woop_any
-
-    t = 256
-    c = rng.uniform(-40, 40, (t, 1, 3))
-    tri = c + rng.uniform(-8, 8, (t, 3, 3))
-    scene = build_scene_from_soup(
-        tri[:, 0].astype(np.float32),
-        tri[:, 1].astype(np.float32),
-        tri[:, 2].astype(np.float32),
-    )
-    acc = build_accel(scene)
-    assert acc.woop_w_shadow is acc.woop_w  # no sky/alpha: shared table
-    n = 512
-    o = jnp.asarray(rng.uniform(-60, 60, (n, 3)).astype(np.float32))
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d)
-    t_max = jnp.asarray(
-        rng.uniform(1.0, 200.0, (n,)).astype(np.float32)
-    )
-    occ = intersect_woop_any(
-        acc, o, d, 1e-3, t_max, ray_block=256, interpret=True
-    )
-    ho = intersect(acc, o, d, 1e-3, t_max)
-    # oracle occlusion: any committed front-facing hit within range.
-    # boundary hits with t within one epilogue ulp of t_max may differ
-    # (the any-hit test is dz-premultiplied) — exclude exact-boundary.
-    oh = np.asarray(ho.tri) >= 0
-    tt = np.asarray(ho.t)
-    tm = np.asarray(t_max)
-    clear = ~oh | (np.abs(tt - tm) > 1e-3 * np.maximum(tm, 1.0))
+    # SoA rows are v0, v1 - v0, v2 - v0 in cluster-major order
+    soa = np.asarray(acc.tri_soa)
+    v0, v1 = np.asarray(acc.scene.v0), np.asarray(acc.scene.v1)
+    np.testing.assert_array_equal(soa[:, 0:3].transpose(0, 2, 1).reshape(-1, 3), v0)
     np.testing.assert_array_equal(
-        np.asarray(occ)[clear], oh[clear]
-    )
-    assert oh.any() and (~oh).any()
-
-
-def test_trace_visibility_alpha_and_shadow_tables(rng):
-    """build_accel produces shadow/alpha tables with the right sharing
-    and coverage; alpha-only cluster AABBs cover the alpha tris."""
-    from tests.test_accel import build_scene_from_soup  # self-import ok
-
-    t = 256
-    c = rng.uniform(-40, 40, (t, 1, 3))
-    tri = c + rng.uniform(-8, 8, (t, 3, 3))
-    scene = build_scene_from_soup(
-        tri[:, 0].astype(np.float32),
-        tri[:, 1].astype(np.float32),
-        tri[:, 2].astype(np.float32),
-    )
-    acc = build_accel(scene)
-    assert acc.woop_w_alpha is None  # no alpha-tested tris
-    assert acc.woop_w_shadow is acc.woop_w
-
-
-def test_woop_proxy_anyhit_matches_oracle(rng):
-    """Scenes ≥4096 tris build a largest-opaque-triangle proxy table;
-    the any-hit sweep pre-resolves occlusion against it (valid: proxy
-    tris are genuine occluders) and must still match the oracle."""
-    from merian_quake_tpu.accel.woop import intersect_woop_any
-
-    t = 4096
-    c = rng.uniform(-40, 40, (t, 1, 3))
-    # mixed scales so the proxy really selects the big ones
-    scale = rng.uniform(0.5, 2.0, (t, 1, 1)) * np.where(
-        rng.uniform(size=(t, 1, 1)) < 0.05, 12.0, 1.0
-    )
-    tri = c + rng.uniform(-1, 1, (t, 3, 3)) * scale
-    scene = build_scene_from_soup(
-        tri[:, 0].astype(np.float32),
-        tri[:, 1].astype(np.float32),
-        tri[:, 2].astype(np.float32),
-    )
-    acc = build_accel(scene)
-    assert acc.woop_w_proxy is not None
-    assert acc.cluster_lo_proxy.shape[0] >= 2
-    n = 512
-    o = jnp.asarray(rng.uniform(-50, 50, (n, 3)).astype(np.float32))
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d)
-    t_max = jnp.asarray(rng.uniform(1.0, 200.0, (n,)).astype(np.float32))
-    occ = intersect_woop_any(
-        acc, o, d, 1e-3, t_max, ray_block=256, interpret=True
-    )
-    ho = intersect(acc, o, d, 1e-3, t_max)
-    oh = np.asarray(ho.tri) >= 0
-    tt, tm = np.asarray(ho.t), np.asarray(t_max)
-    clear = ~oh | (np.abs(tt - tm) > 1e-3 * np.maximum(tm, 1.0))
-    np.testing.assert_array_equal(np.asarray(occ)[clear], oh[clear])
-    assert oh.any() and (~oh).any()
-
-
-def test_woop_target_key_sorted_matches_oracle(rng):
-    """Round-3 target-key scheduling (per-ray top-3 cluster sort key +
-    exact per-block union te): the sorted resident path must agree with
-    the oracle exactly, including masked (t_max<=0) rays and misses."""
-    from merian_quake_tpu.accel.woop import intersect_woop
-
-    t = 1024  # 8 clusters
-    c = rng.uniform(-40, 40, (t, 1, 3))
-    tri = c + rng.uniform(-8, 8, (t, 3, 3))
-    scene = build_scene_from_soup(
-        tri[:, 0].astype(np.float32),
-        tri[:, 1].astype(np.float32),
-        tri[:, 2].astype(np.float32),
-    )
-    acc = build_accel(scene)
-    n = 1024
-    o = jnp.asarray(rng.uniform(-60, 60, (n, 3)).astype(np.float32))
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d)
-    t_max = jnp.asarray(
-        np.where(rng.random(n) < 0.2, -1.0, 1e4).astype(np.float32)
-    )
-    os.environ["MQ_TARGET_KEY"] = "1"
-    os.environ["MQ_WOOP_COMPACT"] = "64"
-    try:
-        hw = intersect_woop(
-            acc, o, d, 0.0, t_max, ray_block=256, interpret=True,
-            sort_rays=True,
-        )
-    finally:
-        del os.environ["MQ_TARGET_KEY"]
-        del os.environ["MQ_WOOP_COMPACT"]
-    ho = intersect(acc, o, d, 0.0, t_max)
-    np.testing.assert_array_equal(np.asarray(hw.tri), np.asarray(ho.tri))
-    hit = np.asarray(ho.tri) >= 0
-    assert hit.any() and (~hit).any()
-    np.testing.assert_allclose(
-        np.asarray(hw.t)[hit], np.asarray(ho.t)[hit], rtol=1e-4, atol=1e-3
+        soa[:, 3:6].transpose(0, 2, 1).reshape(-1, 3), v1 - v0
     )
 
-def test_woop_node_hierarchy_matches_flat(rng):
-    """Round-5 interior-node resident sweep (_kernel_resident_nodes:
-    node-level visit list + per-cluster descent) must agree EXACTLY
-    with the flat resident sweep and the oracle — including partial
-    trailing nodes (nc not divisible by nodes_per), masked rays,
-    misses, the compacted-tile path inside a node, and the sorted
-    bounce path / any-hit wiring."""
-    from merian_quake_tpu.accel.woop import (
-        intersect_woop, intersect_woop_any,
-    )
 
-    t = 64 * 30  # 30 clusters: nodes_per=8 -> 4 nodes, partial last
-    c = rng.uniform(-40, 40, (t, 1, 3))
-    tri = c + rng.uniform(-6, 6, (t, 3, 3))
-    scene = build_scene_from_soup(
-        tri[:, 0].astype(np.float32),
-        tri[:, 1].astype(np.float32),
-        tri[:, 2].astype(np.float32),
-    )
-    acc = build_accel(scene)
-    n = 512
-    o = jnp.asarray(rng.uniform(-60, 60, (n, 3)).astype(np.float32))
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d)
-    t_max = jnp.asarray(
-        np.where(rng.random(n) < 0.2, -1.0, 1e4).astype(np.float32)
-    )
-    flat = intersect_woop(
-        acc, o, d, 0.0, t_max, ray_block=128, interpret=True,
-        resident=True, node_clusters=0,
-    )
-    ho = intersect(acc, o, d, 0.0, t_max)
-    np.testing.assert_array_equal(np.asarray(flat.tri), np.asarray(ho.tri))
-    for P, compact in ((8, 0), (16, 0), (8, 32)):
-        node = intersect_woop(
-            acc, o, d, 0.0, t_max, ray_block=128, interpret=True,
-            resident=True, node_clusters=P, compact=compact,
-        )
-        np.testing.assert_array_equal(
-            np.asarray(node.tri), np.asarray(flat.tri)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(node.t), np.asarray(flat.t)
-        )
-    # sorted bounce path with the node kernel underneath
-    node_s = intersect_woop(
-        acc, o, d, 0.0, t_max, ray_block=128, interpret=True,
-        resident=True, node_clusters=8, sort_rays=True,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(node_s.tri), np.asarray(flat.tri)
-    )
-    # any-hit through the node kernel
-    occ_flat = intersect_woop_any(
-        acc, o, d, 1e-3, 1e4, ray_block=128, interpret=True, resident=True
-    )
-    os.environ["MQ_NODE_CLUSTERS"] = "8"
-    try:
-        occ_node = intersect_woop_any(
-            acc, o, d, 1e-3, 1e4, ray_block=128, interpret=True,
-            resident=True,
-        )
-    finally:
-        del os.environ["MQ_NODE_CLUSTERS"]
-    np.testing.assert_array_equal(
-        np.asarray(occ_node), np.asarray(occ_flat)
-    )
-    assert (np.asarray(flat.tri) >= 0).any()
-    assert (np.asarray(flat.tri) < 0).any()
+@pytest.mark.gpu
+def test_sweep_on_card_matches_oracle(rng, gpu):
+    """The compiled kernel (not the interpreter) vs the oracle."""
+    import jax
+
+    from merian_quake_tpu.accel import sweep
+    from merian_quake_tpu.accel.intersect import intersect_oracle
+
+    acc = _soup_accel(rng, t=4096)
+    o, d = _rays(rng, 4096)
+    got = sweep.sweep_nearest(acc, o, d, 0.0, 1e4, bit=1, interpret=False)
+    with jax.default_matmul_precision("highest"):
+        ref = intersect_oracle(acc, jnp.asarray(o), jnp.asarray(d), 0.0, 1e4)
+    agree = np.asarray(got[1]) == np.asarray(ref.tri)
+    assert agree.mean() >= 0.9999

@@ -5,8 +5,8 @@ from merian_quake_tpu.utils.certify import certify_presets
 
 import pytest
 
-# compile-heavy integration tier (VERDICT r4 weak #6): run with the full
-# suite / preflight; the core tier is pytest -m 'not slow'
+# compile-heavy integration tier: run with the full suite (pytest tests/);
+# the core tier is pytest -m 'not slow'
 pytestmark = pytest.mark.slow
 
 

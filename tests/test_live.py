@@ -183,15 +183,16 @@ def test_live_accel_matches_full_build(arena):
     """The incremental accel (build_accel_live + refresh_dynamic) must
     trace identically to a from-scratch build_accel of the same frame's
     full scene — hit positions equal (triangle orders differ), both on
-    the oracle path and the interpret-mode Woop kernel (round 5,
-    quake_node.cpp:985-1012 BLAS-refit equivalence)."""
+    the oracle path and the interpret-mode cluster sweep, nearest and
+    any-hit (quake_node.cpp:985-1012 BLAS-refit equivalence)."""
     import jax.numpy as jnp
 
     from merian_quake_tpu.accel import build_accel, trace_nearest
     from merian_quake_tpu.accel.build import (
         build_accel_live, refresh_dynamic,
     )
-    from merian_quake_tpu.accel.woop import intersect_woop
+    from merian_quake_tpu.accel import sweep
+    from merian_quake_tpu.accel.build import MASK_OCCLUDER
 
     live = make_arena(dynamic_capacity=512)
     la = build_accel_live(
@@ -221,15 +222,20 @@ def test_live_accel_matches_full_build(arena):
         np.asarray(h_full.t)[np.asarray(h_full.hit)],
         rtol=1e-5, atol=1e-3,
     )
-    # Woop kernel path (the TPU traversal) on the live tables
-    hw = intersect_woop(
-        la.accel, o_j, d_j, 0.0, 1e4, ray_block=256, interpret=True
-    )
+    # cluster sweep on the live tables (static prefix + dynamic suffix)
+    hs = sweep.sweep_nearest(la.accel, o_j, d_j, 0.0, 1e4, bit=1)
+    hit = np.asarray(h_full.hit)
+    np.testing.assert_array_equal(np.asarray(hs[1]) >= 0, hit)
     np.testing.assert_allclose(
-        np.asarray(hw.t)[np.asarray(h_full.hit)],
-        np.asarray(h_full.t)[np.asarray(h_full.hit)],
-        rtol=1e-4, atol=1e-3,
+        np.asarray(hs[0])[hit], np.asarray(h_full.t)[hit],
+        rtol=1e-5, atol=1e-3,
     )
+    dyn_hit = np.asarray(hs[1]) >= la.n_static
+    assert dyn_hit.any()  # some rays end on the dynamic suffix
+    t_max = np.where(hit, np.asarray(h_full.t) * 0.5, 1e4).astype(np.float32)
+    occ = sweep.sweep_any(la.accel, o_j, d_j, 0.0, t_max, bit=MASK_OCCLUDER)
+    ref = trace_nearest(acc_full, None, o_j, d_j, 0.0, t_max, mask=MASK_OCCLUDER)
+    np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref.hit))
 
 
 def test_bigmap_dungeon_live_loop():

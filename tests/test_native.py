@@ -3,7 +3,6 @@ import numpy as np
 import pytest
 
 from merian_quake_tpu.utils import native
-from merian_quake_tpu.accel.woop import bake_candidacy, build_woop as woop_np
 from merian_quake_tpu.models.types import CLUSTER_SIZE
 
 
@@ -66,13 +65,20 @@ def test_cluster_aabbs_match(rng, lib):
         np.testing.assert_allclose(hi[c], pts.max(0), rtol=1e-6)
 
 
-def test_woop_matches_numpy(rng, lib):
-    v0, v1, v2, cand, valid = _soup(rng, t=CLUSTER_SIZE * 2)
-    w_n, cand_n = native.build_woop(v0, v1, v2, cand, CLUSTER_SIZE)
-    w_p, cand_p = woop_np(v0, v1, v2, cand)
-    np.testing.assert_array_equal(cand_n, cand_p)
-    # the python builder bakes candidacy (zeroed rows); native returns
-    # raw rows and build_accel bakes afterwards — compare post-bake
-    np.testing.assert_allclose(
-        bake_candidacy(w_n, cand_n), w_p, rtol=1e-5, atol=1e-7
-    )
+def test_build_accel_native_matches_numpy(rng, lib, monkeypatch):
+    """build_accel's sweep tables are the same with the native AABB
+    builder and with the numpy fallback."""
+    from merian_quake_tpu.accel.build import build_accel
+    from merian_quake_tpu.models.types import build_scene_from_soup
+
+    v0, v1, v2, cand, valid = _soup(rng, t=CLUSTER_SIZE * 3 + 17)
+    scene = build_scene_from_soup(v0, v1, v2)
+    nat = build_accel(scene)
+    monkeypatch.setattr(native, "cluster_aabbs", lambda *a, **k: None)
+    ref = build_accel(scene)
+    for name in ("cluster_lo", "cluster_hi", "tri_soa", "tri_mask",
+                 "cluster_mask"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(nat, name)), np.asarray(getattr(ref, name)),
+            rtol=1e-6, err_msg=name,
+        )

@@ -14,8 +14,8 @@ from merian_quake_tpu.renderer import init_state, render_frame
 
 import pytest
 
-# compile-heavy integration tier (VERDICT r4 weak #6): run with the full
-# suite / preflight; the core tier is pytest -m 'not slow'
+# compile-heavy integration tier: run with the full suite (pytest tests/);
+# the core tier is pytest -m 'not slow'
 pytestmark = pytest.mark.slow
 
 
